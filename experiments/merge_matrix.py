@@ -1,7 +1,7 @@
 """Merge bench JSON lines into BENCH_MATRIX.jsonl without ever shrinking it.
 
 Round 3 lost 7 of 9 matrix lines when an end-of-round rerun recreated the
-file with only the configs it had re-measured (VERDICT r3, Weak #2).  This
+file with only the configs it had re-measured.  This
 merger keys every line by its `metric` field (names are self-describing —
 bench.py stamps batch/ctx/mode/model into both the name and the record),
 updates in place, and never drops a key it didn't re-measure.

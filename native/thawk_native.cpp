@@ -1,6 +1,6 @@
 // thawk_native — threaded host-side weight transformation kernels.
 //
-// The TPU-native runtime streams GGML tensors from an mmap straight into
+// The runtime streams GGML tensors from an mmap straight into
 // device layouts ([out,in] row-major file blocks -> [in,out] transposed,
 // q4 nibbles re-packed for the Pallas kernel).  Doing that with numpy
 // costs several single-threaded passes and temporaries per multi-GB

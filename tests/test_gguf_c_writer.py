@@ -1,4 +1,4 @@
-"""GGUF container-level cross-check (VERDICT r3 #9).
+"""GGUF container-level cross-check.
 
 `thawk_write_tiny_gguf` (native/thawk_native.cpp) writes a complete tiny
 GGUF v3 llama file from the container spec, independently of the Python

@@ -1,4 +1,4 @@
-"""k-quant layout cross-validation (VERDICT round-2 #6 proxy).
+"""k-quant layout cross-validation.
 
 No llama.cpp binary, `gguf` package, or real weight file exists in this
 environment (zero egress), so layout correctness is validated by the

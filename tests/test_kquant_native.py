@@ -55,21 +55,26 @@ def test_from_kquant_raw_bit_exact(rng, kind):
 
 @pytest.mark.parametrize("kind", list(_QFN))
 def test_qk_matmul_matches_dequant(rng, kind):
-    from tokenhawk_tpu.ops.pallas.qmatmul import quant_matmul
+    from tokenhawk_tpu.ops.pallas.qgemv import qgemv, supported
 
     out_dim, in_dim = 384, 2 * QK_K
     raw = _QFN[kind](
         (rng.standard_normal(out_dim * in_dim) * 0.05).astype(np.float32))
     w = from_kquant_raw(kind, raw, (out_dim, in_dim))
     x = jnp.asarray(rng.standard_normal((3, in_dim)), jnp.bfloat16)
-    y = quant_matmul(x, w, interpret=True)
+    assert supported(3, w)
+    y = qgemv(x, w, interpret=True)
     ref = np.asarray(x, np.float32) @ np.asarray(w.dequantize(), np.float32)
     np.testing.assert_allclose(
         np.asarray(y, np.float32), ref, atol=2e-2, rtol=2e-2)
 
 
-def test_qk_matmul_fused_norm(rng):
-    from tokenhawk_tpu.ops.pallas.qmatmul import quant_matmul
+def test_qk_matmul_fused_norm(rng, monkeypatch):
+    """matmul(x, w, norm_gain) == rms_norm(x) @ w through the GEMV."""
+    from tokenhawk_tpu.ops import dispatch
+    from tokenhawk_tpu.ops.linear import matmul
+
+    monkeypatch.setattr(dispatch, "_BACKEND", "interpret")
 
     out_dim, in_dim = 384, 2 * QK_K
     raw = quantize_q4_k(
@@ -77,7 +82,7 @@ def test_qk_matmul_fused_norm(rng):
     w = from_kquant_raw(GGMLType.Q4_K, raw, (out_dim, in_dim))
     gain = jnp.asarray(1.0 + 0.1 * rng.standard_normal(in_dim), jnp.float32)
     x = jnp.asarray(rng.standard_normal((2, in_dim)), jnp.bfloat16)
-    y = quant_matmul(x, w, gain, interpret=True)
+    y = matmul(x, w, gain)
     xf = np.asarray(x, np.float32)
     xn = xf / np.sqrt((xf * xf).mean(-1, keepdims=True) + 1e-6)
     xn = xn * np.asarray(gain, np.float32)
@@ -97,38 +102,6 @@ def test_to_qk16_exact(rng):
         assert w16.mins is not None
         np.testing.assert_array_equal(
             np.asarray(w16.dequantize()), np.asarray(w.dequantize()))
-
-
-def test_fused_ffn_kquant_mixed(rng):
-    """Fused FFN kernel with a Q4_K w13 (affine, group 32) and a Q6_K w2
-    (symmetric, group 16) — the *_M file shape."""
-    from tokenhawk_tpu.ops.pallas.ffn import can_fuse_ffn, fused_ffn
-
-    D, F = 256, 512
-    w13 = from_kquant_raw(
-        GGMLType.Q4_K,
-        quantize_q4_k((rng.standard_normal(2 * F * D) * 0.05).astype(
-            np.float32)),
-        (2 * F, D))
-    w2 = from_kquant_raw(
-        GGMLType.Q6_K,
-        quantize_q6_k((rng.standard_normal(D * F) * 0.05).astype(
-            np.float32)),
-        (D, F))
-    gain = jnp.asarray(1.0 + 0.1 * rng.standard_normal(D), jnp.float32)
-    x = jnp.asarray(rng.standard_normal((2, D)), jnp.bfloat16)
-    assert can_fuse_ffn(w13, w2, 2)
-    y = fused_ffn(x, w13, w2, gain, interpret=True)
-
-    xf = np.asarray(x, np.float32)
-    xn = xf / np.sqrt((xf * xf).mean(-1, keepdims=True) + 1e-6)
-    xn = xn * np.asarray(gain, np.float32)
-    gu = xn @ np.asarray(w13.dequantize(), np.float32)
-    g, u = gu[:, :F], gu[:, F:]
-    h = g / (1 + np.exp(-g)) * u
-    ref = xf + h @ np.asarray(w2.dequantize(), np.float32)
-    np.testing.assert_allclose(
-        np.asarray(y, np.float32), ref, atol=3e-2, rtol=3e-2)
 
 
 def test_gguf_mixed_kind_layers_load_and_generate(tmp_path):
@@ -252,7 +225,7 @@ def test_q5_0_q5_1_gguf_roundtrip_and_device(rng):
         pack_q5_0_blocks,
         pack_q5_1_blocks,
     )
-    from tokenhawk_tpu.ops.pallas.qmatmul import quant_matmul
+    from tokenhawk_tpu.ops.pallas.qgemv import qgemv
     from tokenhawk_tpu.ops.qweight import from_quantized_tensor
 
     out_dim, in_dim = 16, 8 * QK
@@ -272,7 +245,7 @@ def test_q5_0_q5_1_gguf_roundtrip_and_device(rng):
         np.testing.assert_array_equal(
             np.asarray(w.dequantize(), np.float32), dense.T)
         a = jnp.asarray(rng.standard_normal((2, in_dim)), jnp.bfloat16)
-        y = quant_matmul(a, w, interpret=True)
+        y = qgemv(a, w, interpret=True)
         ref = np.asarray(a, np.float32) @ dense.T
         np.testing.assert_allclose(np.asarray(y, np.float32), ref,
                                    atol=5e-2, rtol=5e-2)

@@ -6,9 +6,11 @@ import pytest
 
 from tokenhawk_tpu.config import LlamaConfig, SamplingConfig
 from tokenhawk_tpu.models.llama import params_from_ggml
-from tokenhawk_tpu.ops.pallas.paged_decode_int8 import paged_flash_decode_int8
 from tokenhawk_tpu.runtime.paged import (
+    PagedKVCache,
     PagedQuantKVCache,
+    append_token_layer,
+    attend_paged_layer,
     append_token_layer_int8,
     attend_paged_layer_int8,
     paginate_fragment_layer_int8,
@@ -35,31 +37,43 @@ def _fill_cache(rng, cfg, Hkv, Dh, B, n_toks, table):
     return (k_l, ks_l, v_l, vs_l), lengths
 
 
+def _fill_both(rng, cfg, Hkv, Dh, B, n_toks, table):
+    """The same tokens appended to an int8 pool and an f32 pool."""
+    q8 = PagedQuantKVCache.create(cfg, n_pages=6, page_size=PS)
+    f32 = PagedKVCache.create(cfg, n_pages=6, page_size=PS,
+                              dtype=jnp.float32)
+    k_l, ks_l, v_l, vs_l = (q8.k_pages[0], q8.ks_pages[0], q8.v_pages[0],
+                            q8.vs_pages[0])
+    kf, vf = f32.k_pages[0], f32.v_pages[0]
+    lengths = jnp.zeros((B,), jnp.int32)
+    for i in range(max(n_toks)):
+        k = jnp.asarray(rng.standard_normal((B, Hkv, Dh)), jnp.float32)
+        v = jnp.asarray(rng.standard_normal((B, Hkv, Dh)), jnp.float32)
+        k_l, ks_l = append_token_layer_int8(k_l, ks_l, k, table, lengths)
+        v_l, vs_l = append_token_layer_int8(v_l, vs_l, v, table, lengths)
+        kf = append_token_layer(kf, k, table, lengths)
+        vf = append_token_layer(vf, v, table, lengths)
+        lengths = lengths + jnp.asarray([i < n for n in n_toks])
+    return (k_l, ks_l, v_l, vs_l), (kf, vf), lengths
+
+
 @pytest.mark.parametrize("rep_heads", [(4, 1), (2, 2)])
-def test_paged_int8_kernel_matches_fallback(rng, rep_heads):
+def test_paged_int8_attend_matches_f32_pages(rng, rep_heads):
+    """int8 pages (plain gather + dequantize path) track f32 pages
+    holding the same tokens, on ragged lengths incl. a one-token slot."""
     Hkv, rep = rep_heads
     cfg = LlamaConfig.tiny(n_layer=1, n_head=4, n_kv_head=Hkv)
     Dh = cfg.head_dim
-    B = 2
-    table = jnp.asarray([[5, 2], [1, 3]], jnp.int32)
-    (k_l, ks_l, v_l, vs_l), lengths = _fill_cache(
-        rng, cfg, Hkv, Dh, B, [PS + 40, 70], table)
-
-    H = cfg.n_head
-    q = jnp.asarray(rng.standard_normal((B, 1, H, Dh)), jnp.float32)
-    # XLA gather + dequantize fallback is the reference.
-    want = np.asarray(attend_paged_layer_int8(
+    B = 3
+    table = jnp.asarray([[5, 2], [1, 3], [4, 0]], jnp.int32)
+    (k_l, ks_l, v_l, vs_l), (kf, vf), lengths = _fill_both(
+        rng, cfg, Hkv, Dh, B, [PS + 40, 70, 1], table)
+    q = jnp.asarray(rng.standard_normal((B, 1, cfg.n_head, Dh)),
+                    jnp.float32)
+    want = np.asarray(attend_paged_layer(q, kf, vf, table, lengths))
+    got = np.asarray(attend_paged_layer_int8(
         q, k_l, ks_l, v_l, vs_l, table, lengths))
-
-    from tokenhawk_tpu.runtime.paged import _contig
-
-    qg = (q[:, 0] / np.sqrt(Dh)).reshape(B, Hkv, rep, Dh)
-    got = np.asarray(paged_flash_decode_int8(
-        qg, k_l, ks_l, v_l, vs_l, table, lengths, contig=_contig(),
-        interpret=True
-    )).reshape(B, 1, H, Dh)
-    # Kernel additionally quantizes q and the probability rows (int8
-    # attention, ~0.4% each — see ops/pallas/flash_decode_int8.py).
+    # per-token int8 rounding of K and V (~0.4% relative each)
     np.testing.assert_allclose(got, want, atol=3e-2, rtol=3e-2)
 
 
@@ -111,33 +125,3 @@ def test_paged_scheduler_int8_generates(rng):
         assert n_match >= min(len(g), len(w)) // 2, (g, w)
     # pages recycled on completion
     assert s.alloc.n_free == s.alloc.n_pages - 1
-
-@pytest.mark.parametrize("rep_heads", [(4, 1), (2, 2)])
-def test_paged_int8_walk_matches_grid(rng, rep_heads):
-    """paged_flash_decode_int8_walk must match the grid kernel EXACTLY
-    (same quantized arithmetic, restructured walk), on ragged lengths
-    incl. a one-token slot."""
-    from tokenhawk_tpu.ops.pallas.paged_decode_int8 import (
-        paged_flash_decode_int8_walk,
-    )
-
-    Hkv, rep = rep_heads
-    cfg = LlamaConfig.tiny(n_layer=1, n_head=4, n_kv_head=Hkv)
-    Dh = cfg.head_dim
-    B = 3
-    table = jnp.asarray([[5, 2], [1, 3], [4, 0]], jnp.int32)
-    (k_l, ks_l, v_l, vs_l), lengths = _fill_cache(
-        rng, cfg, Hkv, Dh, B, [PS + 40, 70, 1], table)
-
-    H = cfg.n_head
-    q = jnp.asarray(rng.standard_normal((B, 1, H, Dh)), jnp.float32)
-    from tokenhawk_tpu.runtime.paged import _contig
-
-    qg = (q[:, 0] / np.sqrt(Dh)).reshape(B, Hkv, rep, Dh)
-    want = np.asarray(paged_flash_decode_int8(
-        qg, k_l, ks_l, v_l, vs_l, table, lengths, contig=_contig(),
-        interpret=True))
-    got = np.asarray(paged_flash_decode_int8_walk(
-        qg, k_l, ks_l, v_l, vs_l, table, lengths, contig=_contig(),
-        interpret=True))
-    np.testing.assert_allclose(got, want, atol=2e-6, rtol=1e-5)

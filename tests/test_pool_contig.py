@@ -1,10 +1,9 @@
 """Page-pool layout equivalence: head-major vs contig (page-major).
 
 THAWK_POOL_LAYOUT selects the physical pool layout (runtime/paged.py
-pool_layout()).  The contig layout [n_pages, Hkv, ps, Dh] exists so a
-decode-walk head-group slab is one contiguous DMA run; these tests pin
-that both layouts are bit-identical at the kernel level and end-to-end
-through the paged scheduler.
+pool_layout()).  These tests pin that both layouts give identical
+results in the decode kernel, the plain append/gather ops and
+end-to-end through the paged scheduler.
 """
 
 import os
@@ -16,18 +15,7 @@ import pytest
 
 from tokenhawk_tpu.config import LlamaConfig, SamplingConfig
 from tokenhawk_tpu.models.llama import params_from_ggml
-from tokenhawk_tpu.ops.pallas.paged_decode import (
-    gather_pages_dense,
-    gather_pages_dense_int8,
-    paged_append_rows,
-    paged_append_scales,
-    paged_flash_decode,
-    paged_flash_decode_walk,
-)
-from tokenhawk_tpu.ops.pallas.paged_decode_int8 import (
-    paged_flash_decode_int8,
-    paged_flash_decode_int8_walk,
-)
+from tokenhawk_tpu.ops.pallas.paged_attention import paged_decode
 from tokenhawk_tpu.runtime.paged_scheduler import PagedScheduler
 
 from helpers import make_ggml_weights
@@ -44,89 +32,74 @@ def _pools(rng, npages, Hkv, ps, Dh, dtype):
 
 
 @pytest.mark.parametrize("rep_heads", [(2, 2), (4, 1)])
-def test_walk_and_grid_kernels_match_across_layouts(rng, rep_heads):
+def test_decode_kernel_matches_across_layouts(rng, rep_heads):
     Hkv, rep = rep_heads
-    B, mp, ps, npages, Dh = 2, 3, 128, 8, 128
+    B, mp, ps, npages, Dh = 2, 3, 64, 8, 64
     table = jnp.asarray(
         np.random.default_rng(3).permutation(npages)[: B * mp].reshape(B, mp),
         jnp.int32,
     )
     lengths = jnp.asarray([2 * ps + 5, 60], jnp.int32)
-    q = jnp.asarray(rng.standard_normal((B, Hkv, rep, Dh)), jnp.bfloat16)
+    q = jnp.asarray(rng.standard_normal((B, Hkv * rep, Dh)), jnp.bfloat16)
     k_head, k_con = _pools(rng, npages, Hkv, ps, Dh, jnp.bfloat16)
     v_head, v_con = _pools(rng, npages, Hkv, ps, Dh, jnp.bfloat16)
 
-    for fn in (paged_flash_decode_walk, paged_flash_decode):
-        o_head = fn(q, k_head, v_head, table, lengths, interpret=True)
-        o_con = fn(q, k_con, v_con, table, lengths, contig=True,
-                   interpret=True)
-        np.testing.assert_array_equal(np.asarray(o_head), np.asarray(o_con))
+    o_head = paged_decode(q, k_head, v_head, table, lengths, contig=False,
+                          interpret=True)
+    o_con = paged_decode(q, k_con, v_con, table, lengths, contig=True,
+                         interpret=True)
+    np.testing.assert_array_equal(np.asarray(o_head), np.asarray(o_con))
 
 
 @pytest.mark.parametrize("rep_heads", [(2, 2), (4, 1)])
-def test_int8_kernels_match_across_layouts(rng, rep_heads):
+def test_int8_attend_matches_across_layouts(rng, rep_heads, monkeypatch):
+    from tokenhawk_tpu.runtime.paged import attend_paged_layer_int8
+
     Hkv, rep = rep_heads
-    B, mp, ps, npages, Dh = 2, 2, 128, 6, 128
+    B, ps, npages, Dh = 2, 16, 6, 32
     table = jnp.asarray([[5, 2], [1, 3]], jnp.int32)
-    lengths = jnp.asarray([ps + 40, 70], jnp.int32)
-    q = jnp.asarray(rng.standard_normal((B, Hkv, rep, Dh)), jnp.float32)
+    lengths = jnp.asarray([ps + 4, 7], jnp.int32)
+    q = jnp.asarray(rng.standard_normal((B, 1, Hkv * rep, Dh)), jnp.float32)
     k_head, k_con = _pools(rng, npages, Hkv, ps, Dh, jnp.int8)
     v_head, v_con = _pools(rng, npages, Hkv, ps, Dh, jnp.int8)
     sc = rng.standard_normal((npages, Hkv, ps)).astype(np.float32) ** 2
     ks_con = jnp.asarray(sc, jnp.float32)
-    ks_head = jnp.swapaxes(ks_con, 0, 1)
     vs_con = jnp.asarray(sc * 0.5 + 0.1, jnp.float32)
-    vs_head = jnp.swapaxes(vs_con, 0, 1)
 
-    for fn in (paged_flash_decode_int8_walk, paged_flash_decode_int8):
-        o_head = fn(q, k_head, ks_head, v_head, vs_head, table, lengths,
-                    interpret=True)
-        o_con = fn(q, k_con, ks_con, v_con, vs_con, table, lengths,
-                   contig=True, interpret=True)
-        np.testing.assert_array_equal(np.asarray(o_head), np.asarray(o_con))
+    monkeypatch.setenv("THAWK_POOL_LAYOUT", "head")
+    o_head = attend_paged_layer_int8(
+        q, k_head, jnp.swapaxes(ks_con, 0, 1), v_head,
+        jnp.swapaxes(vs_con, 0, 1), table, lengths)
+    monkeypatch.setenv("THAWK_POOL_LAYOUT", "contig")
+    o_con = attend_paged_layer_int8(q, k_con, ks_con, v_con, vs_con, table,
+                                    lengths)
+    np.testing.assert_array_equal(np.asarray(o_head), np.asarray(o_con))
 
 
-def test_append_and_gather_match_across_layouts(rng):
-    B, mp, ps, npages, Hkv, Dh = 2, 3, 128, 8, 2, 128
+def test_append_and_gather_match_across_layouts(rng, monkeypatch):
+    from tokenhawk_tpu.runtime.paged import (
+        append_token_layer,
+        gather_pool_payload,
+    )
+
+    B, mp, ps, npages, Hkv, Dh = 2, 3, 16, 8, 2, 32
     table = jnp.asarray(
         np.random.default_rng(5).permutation(npages)[: B * mp].reshape(B, mp),
         jnp.int32,
     )
     k_head, k_con = _pools(rng, npages, Hkv, ps, Dh, jnp.bfloat16)
-    v_head, v_con = _pools(rng, npages, Hkv, ps, Dh, jnp.bfloat16)
-
     new = jnp.asarray(rng.standard_normal((B, Hkv, Dh)), jnp.bfloat16)
-    page = jnp.asarray([3, 5], jnp.int32)
-    slot = jnp.asarray([17, 9], jnp.int32)
-    a_head = paged_append_rows(k_head, new, page, slot, interpret=True)
-    a_con = paged_append_rows(k_con, new, page, slot, contig=True,
-                              interpret=True)
+    positions = jnp.asarray([17, 9], jnp.int32)
+
+    monkeypatch.setenv("THAWK_POOL_LAYOUT", "head")
+    a_head = append_token_layer(k_head, new, table, positions)
+    g_head = gather_pool_payload(a_head, table)
+    monkeypatch.setenv("THAWK_POOL_LAYOUT", "contig")
+    a_con = append_token_layer(k_con, new, table, positions)
+    g_con = gather_pool_payload(a_con, table)
     np.testing.assert_array_equal(
         np.asarray(a_head), np.asarray(jnp.swapaxes(a_con, 0, 1)))
-
-    snew = jnp.asarray(rng.standard_normal((B, Hkv)), jnp.float32)
-    sp_con = jnp.asarray(
-        rng.standard_normal((npages, Hkv, ps)), jnp.float32)
-    sp_head = jnp.swapaxes(sp_con, 0, 1)
-    s_head = paged_append_scales(sp_head, snew, page, slot, interpret=True)
-    s_con = paged_append_scales(sp_con, snew, page, slot, contig=True,
-                                interpret=True)
-    np.testing.assert_array_equal(
-        np.asarray(s_head), np.asarray(jnp.swapaxes(s_con, 0, 1)))
-
-    g_head = gather_pages_dense(k_head, v_head, table, interpret=True)
-    g_con = gather_pages_dense(k_con, v_con, table, contig=True,
-                               interpret=True)
-    for a, b in zip(g_head, g_con):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-    k8_head, k8_con = _pools(rng, npages, Hkv, ps, Dh, jnp.int8)
-    gi_head = gather_pages_dense_int8(k8_head, sp_head, k8_head, sp_head,
-                                      table, interpret=True)
-    gi_con = gather_pages_dense_int8(k8_con, sp_con, k8_con, sp_con,
-                                     table, contig=True, interpret=True)
-    for a, b in zip(gi_head, gi_con):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    np.testing.assert_array_equal(np.asarray(g_head), np.asarray(g_con))
 
 
 def _serve(layout, params, cfg, prompts, monkeypatch, **kw):

@@ -388,6 +388,20 @@ def test_chat_template_sandboxed(monkeypatch):
         "{% for m in messages %}{{ m.content }}{% endfor %}", msgs) == "hi"
 
 
+def test_chat_template_without_jinja2_is_a_clear_error(monkeypatch):
+    """jinja2 is optional: without it a templated chat request gets a
+    message naming the missing package and the endpoints that work."""
+    import sys
+
+    from tokenhawk_tpu.serving import server as server_mod
+
+    monkeypatch.setitem(sys.modules, "jinja2", None)
+    monkeypatch.setitem(sys.modules, "jinja2.sandbox", None)
+    with pytest.raises(RuntimeError, match="needs the jinja2 package"):
+        server_mod._render_chat_template(
+            "{{ messages }}", [{"role": "user", "content": "hi"}])
+
+
 def test_malicious_chat_template_maps_to_400():
     """End-to-end: a model file carrying an escape-attempt template gets
     a clean 400 from /v1/chat/completions, not code execution."""

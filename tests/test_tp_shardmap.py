@@ -243,7 +243,7 @@ def test_tp_unrolled_fused_quantized_matches(tensors, kind):
 
 def test_tp_unrolled_decode_updates_cache_in_place(tensors):
     """The unrolled TP decode step must not reallocate/rewrite the cache
-    per step (the scan-ys bug fixed on single chip, BENCH_NOTES.md).
+    per step (the scan-ys rewrite fixed on one device).
     Criterion: compiled temp allocation is far below the cache footprint
     (measured: ~4 KB unrolled vs ~1.8x the whole local cache for the
     stacked-scan form, whose scan-ys rewrite allocates a fresh cache)."""

@@ -1,4 +1,4 @@
-"""tokenhawk_tpu — a TPU-native quantized LLM inference engine.
+"""tokenhawk_tpu — a quantized LLM inference engine in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 kayvr/token-hawk (a hand-written WebGPU LLaMA inference engine):
@@ -6,8 +6,8 @@ kayvr/token-hawk (a hand-written WebGPU LLaMA inference engine):
   - GGML weight loading (f16, Q8_0, Q4_0, Q4_1) streamed into a
     GSPMD-sharded weight layout                      (`tokenhawk_tpu.ggml`)
   - SentencePiece-style BPE tokenizer                (`tokenhawk_tpu.tokenizer`)
-  - fused Pallas dequant+matmul / flash-attention /
-    flash-decode kernels                             (`tokenhawk_tpu.ops`)
+  - Pallas (Triton route) dequantizing GEMV and paged
+    decode-attention kernels                         (`tokenhawk_tpu.ops`)
   - a jit-compiled generation loop with on-device
     sampling and continuous batching                 (`tokenhawk_tpu.runtime`)
   - tensor/data-parallel sharding over a device mesh (`tokenhawk_tpu.parallel`)
@@ -21,9 +21,5 @@ program with donated KV buffers, so there is no per-token host round-trip.
 """
 
 __version__ = "0.1.0"
-
-from tokenhawk_tpu.utils import jaxpatches as _jaxpatches
-
-_jaxpatches.apply()
 
 from tokenhawk_tpu.config import LlamaConfig  # noqa: F401

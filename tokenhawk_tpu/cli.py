@@ -4,7 +4,7 @@ Parity with the reference CLI (/root/reference/cli/main.cpp:182-198):
 
     python -m tokenhawk_tpu.cli -m models/7B/ggml-model-f16.bin "<prompt>"
 
-plus the TPU-era extensions: --n-ctx, --temp/--top-k/--top-p/--repeat,
+plus extensions: --n-ctx, --temp/--top-k/--top-p/--repeat,
 --max-tokens, --greedy, --dtype, --tp (tensor-parallel width).
 """
 
@@ -17,7 +17,7 @@ import time
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="tokenhawk", description="TPU-native LLaMA inference"
+        prog="tokenhawk", description="Quantized LLaMA inference in JAX"
     )
     p.add_argument("-m", "--model", help="GGML model file")
     p.add_argument("-d", "--dir", help="TH chunk directory (split model)")
@@ -32,8 +32,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=780658349)
     p.add_argument("--dtype", choices=["bf16", "f32"], default="bf16")
     p.add_argument("--kv", choices=["bf16", "int8", "auto"], default="bf16",
-                   help="KV cache dtype; auto picks int8 at long n-ctx "
-                        "(crossover ~256 live tokens, see BENCH_NOTES)")
+                   help="KV cache dtype; auto picks int8 at long n-ctx")
     p.add_argument("--tp", type=int, default=1, help="tensor-parallel width")
     p.add_argument("--timing", action="store_true", help="per-token latency stats")
     p.add_argument("--draft-model", help="GGML draft model for speculative "
@@ -49,6 +48,10 @@ def main(argv=None) -> int:
     model_path = args.model or args.dir
     if not model_path:
         parser.error("one of -m/--model or -d/--dir is required")
+
+    from tokenhawk_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import jax.numpy as jnp
 

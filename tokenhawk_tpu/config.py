@@ -106,7 +106,7 @@ class LlamaConfig:
 
     @staticmethod
     def tiny(**kw) -> "LlamaConfig":
-        """Small config for unit tests (CPU-runnable, TPU-tileable dims)."""
+        """Small config for unit tests (CPU-runnable)."""
         kw.setdefault("n_vocab", 512)
         kw.setdefault("n_embd", 256)
         kw.setdefault("n_head", 4)

@@ -52,7 +52,7 @@ class GGMLType(enum.IntEnum):
     Q5_1 = 7
     Q8_0 = 8
     # k-quants (GGUF only; 256-element super-blocks).  Parsed by
-    # ggml/kquants.py; served natively by the qk device kernels
+    # ggml/kquants.py; served natively by the GEMV kernel
     # (ops/qweight.from_kquant_raw).
     Q2_K = 10
     Q3_K = 11

@@ -4,7 +4,7 @@ llama.cpp's *_K model files store most projection weights in 256-element
 super-blocks with second-level quantized scales; the reference era
 predates them entirely.  This module extracts the block streams to
 (codes, per-group scale, per-group min) triples — the NATIVE device
-representation served by the generic qk Pallas kernel
+representation served by the GEMV kernel (ops/pallas/qgemv.py)
 (ops/qweight.from_kquant_raw; no requantize detour — bit-exact with
 f32 sides, the default bf16 rounds the affine sides) — and
 decodes/encodes dense f32 for tests and fallbacks.
@@ -91,31 +91,6 @@ def extract_q4_k(raw: bytes, n: int):
     s = (d[:, None] * sc.astype(np.float32)).reshape(nb * 8)
     m = (dmin[:, None] * mn.astype(np.float32)).reshape(nb * 8)
     return codes.reshape(n), s, m
-
-
-def extract_q4_k_sb(raw: bytes, n: int):
-    """Q4_K block stream -> SUPER-BLOCK parts: (codes u8 [n], sc6 u8
-    [n//32], mn6 u8 [n//32], d f32 [n//256], dmin f32 [n//256]) with
-    y = (d[sb]*sc6[g])*code - (dmin[sb]*mn6[g]).
-
-    Keeping the two quantization levels separate on device costs
-    2/32 B (int8 sc|mn) + 4/256 B (f16 d|dmin) per element instead of
-    the flattened form's 2*2/32 B — 4.63 vs 5.0 bpw; the kernel fuses
-    the d*sc expansion (two sublane-broadcast multiplies per tile)."""
-    nb = n // QK_K
-    buf = np.frombuffer(raw, np.uint8, count=nb * 144).reshape(nb, 144)
-    d = buf[:, 0:2].copy().view("<f2").astype(np.float32).reshape(nb)
-    dmin = buf[:, 2:4].copy().view("<f2").astype(np.float32).reshape(nb)
-    sc, mn = _unpack_scale_min_k4(buf[:, 4:16])  # [nb, 8] u8
-    qs = buf[:, 16:144]
-
-    codes = np.empty((nb, QK_K), np.uint8)
-    for chunk in range(4):
-        q = qs[:, chunk * 32 : (chunk + 1) * 32]
-        codes[:, chunk * 64 : chunk * 64 + 32] = q & 0x0F
-        codes[:, chunk * 64 + 32 : chunk * 64 + 64] = q >> 4
-    return (codes.reshape(n), sc.reshape(nb * 8), mn.reshape(nb * 8),
-            d, dmin)
 
 
 def dequant_q4_k(raw: bytes, n: int) -> np.ndarray:

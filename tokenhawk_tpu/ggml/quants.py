@@ -8,7 +8,7 @@ On-disk block layouts follow the ggjt-v1 era of llama.cpp (f32 block
 scales, 32-element blocks, adjacent-pair nibble packing for Q4).  The
 in-memory canonical form keeps the quantized integers *unpacked* as int8
 plus separate f32 per-block scales; the device upload path re-packs them
-(int4 / int8 payload + bf16 scales) for the Pallas dequant+matmul kernels.
+(int4 / int8 payload + bf16 scales) for the dequantizing matmul paths.
 """
 
 from __future__ import annotations

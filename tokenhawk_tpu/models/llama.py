@@ -1,16 +1,16 @@
 """LLaMA-family model as pure functions over a parameter pytree.
 
-This is the TPU-native redesign of the reference's model layer
+This is the JAX redesign of the reference's model layer
 (/root/reference/th-llama.cpp:270-452 `build_layer_cmdbuf` and
 :240-268 `build_final_compute_cmdbuf`): instead of encoding 19 pipeline
 dispatches per layer into a command buffer, the whole forward pass is one
 traced XLA program — `lax.scan` over stacked layer weights, KV-cache
 updates via dynamic_update_slice on donated buffers, and every matmul
-routed through `ops.matmul` (dense bf16 or fused-dequant quantized).
+routed through `ops.matmul` (dense bf16 or dequantizing quantized).
 
 Weight orientation: GGML stores [out, in] and computes y = x·W^T
 (/root/reference/th.cpp:2839-2892 contracts B's columns); here weights
-are [in, out] so y = x @ W feeds the MXU directly.
+are [in, out] so y = x @ W contracts directly.
 
 GGML tensor names follow the reference loader
 (/root/reference/th-llama-loader.cpp:355-432): tok_embeddings.weight,
@@ -22,7 +22,6 @@ norm.weight, output.weight.
 from __future__ import annotations
 
 import dataclasses
-import os as _os
 from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import jax
@@ -72,10 +71,7 @@ class LlamaParams:
 
 
 class KVCache(NamedTuple):
-    """Dense KV cache, head-major: [L, B, Hkv, S, Dh].
-
-    (seq, head_dim) are the minor dims so the flash kernels can tile the
-    sequence without putting a size-1 head slice in the tiled dims."""
+    """Dense KV cache, head-major: [L, B, Hkv, S, Dh]."""
 
     k: jax.Array
     v: jax.Array
@@ -93,96 +89,24 @@ class KVCache(NamedTuple):
         return self.k.shape[3]
 
 
-def _attend_and_update(cfg, q, k, v, lcache, offsets, positions,
-                       prefer_append: bool = True):
+def _attend_and_update(cfg, q, k, v, lcache, offsets, positions):
     """Write (k, v) into this layer's cache and attend.
 
     lcache is (k_cache, v_cache) for a bf16/f32 cache or
     (k, k_scales, v, v_scales) for an int8-quantized cache
     (ops/kvquant.py).
-
-    prefer_append: use the fused append+attend kernel when available.
-    The caller passes False for DENSE (unquantized) weights: in that
-    program XLA's memory-space assignment stages the aliased caches in
-    alternate memory around the pallas call (a full HBM<->VMEM round
-    trip per layer per step, 55.4 -> 50.6 tok/s on the f16 7B config),
-    while in the quantized program — whose VMEM is held by the qmatmul
-    kernels — aliasing stays in place and the fusion wins (+3.6%).
     """
     if len(lcache) == 2:
-        from tokenhawk_tpu.ops.dispatch import pallas_mode
-
-        kc, vc = lcache
-        B, T, H, Dh = q.shape
-        S = kc.shape[2]
-        mode = pallas_mode()
-        import os as _os
-
-        append_env = _os.environ.get("THAWK_DECODE_APPEND", "1")
-        if (
-            T == 1
-            and (append_env == "force" or (prefer_append and append_env == "1"))
-            and mode is not None
-            and Dh % 128 == 0
-            and S % 128 == 0
-            and _os.environ.get("THAWK_DECODE_KERNEL", "dma") == "dma"
-        ):
-            # Fused append+attend: the KV write rides inside the decode
-            # kernel (aliased cache), replacing the per-layer dus chain
-            # (O(B) host-graph ops) — see flash_decode_append.
-            from tokenhawk_tpu.ops.pallas.flash_decode_dma import (
-                flash_decode_append,
-            )
-
-            Hkv = kc.shape[1]
-            rep = H // Hkv
-            qg = (q[:, 0] * (1.0 / Dh**0.5)).reshape(B, Hkv, rep, Dh)
-            lengths = jnp.minimum(positions[:, 0] + 1, S).astype(jnp.int32)
-            out, kc, vc = flash_decode_append(
-                qg, k[:, 0], v[:, 0], kc, vc, lengths,
-                interpret=(mode == "interpret"),
-            )
-            return out.reshape(B, 1, H, Dh).astype(q.dtype), (kc, vc)
-
-        kc, vc = update_kv_cache(kc, vc, k, v, offsets)
+        kc, vc = update_kv_cache(*lcache, k, v, offsets)
         return attend_cache(q, kc, vc, positions), (kc, vc)
 
-    from tokenhawk_tpu.ops.dispatch import pallas_mode
     from tokenhawk_tpu.ops.kvquant import (
         attend_cache_int8,
         update_kv_cache_int8,
     )
 
     kc, ksc, vc, vsc = update_kv_cache_int8(*lcache, k, v, offsets)
-    Dh = q.shape[-1]
-    S = kc.shape[2]
-    T = q.shape[1]
-    mode = pallas_mode()
-    if mode is not None and Dh % 128 == 0 and S % 128 == 0 and T == 1:
-        from tokenhawk_tpu.ops.pallas.flash_decode_int8 import flash_decode_int8
-
-        B, T, H, _ = q.shape
-        Hkv = kc.shape[1]
-        rep = H // Hkv
-        qg = (q[:, 0] * (1.0 / Dh**0.5)).reshape(B, Hkv, rep, Dh)
-        out = flash_decode_int8(
-            qg, kc, ksc, vc, vsc, jnp.minimum(positions[:, 0] + 1, S),
-            interpret=(mode == "interpret"),
-        )
-        ctx = out.reshape(B, 1, H, Dh).astype(q.dtype)
-    elif mode is not None and Dh % 128 == 0 and S % 128 == 0 and T % 8 == 0:
-        # int8-KV prefill kernel: per-tile dequant in VMEM instead of
-        # the XLA fallback's whole-cache f32 materialization.
-        from tokenhawk_tpu.ops.pallas.flash_attention_int8 import (
-            attend_prefill_int8,
-        )
-
-        ctx = attend_prefill_int8(
-            q, kc, ksc, vc, vsc, positions, 1.0 / Dh**0.5,
-            interpret=(mode == "interpret"),
-        )
-    else:
-        ctx = attend_cache_int8(q, kc, ksc, vc, vsc, positions)
+    ctx = attend_cache_int8(q, kc, ksc, vc, vsc, positions)
     return ctx, (kc, ksc, vc, vsc)
 
 
@@ -190,33 +114,9 @@ def _wo_ffn_block(cfg: LlamaConfig, x, ctx, lp: LayerParams,
                   psum_axis=None):
     """x + ctx @ Wo followed by the SwiGLU MLP block.
 
-    At decode row counts with symmetric quantized weights the WHOLE
-    post-attention half of the layer (Wo + residual + norm + MLP +
-    residual) runs as one weight-streaming Pallas kernel
-    (ops/pallas/ffn.py fused_owo_ffn) — every grid cell is a pure
-    weight-streaming step, so the HBM pipeline stays saturated across
-    the old wo->ffn kernel boundary.
-
     psum_axis: tensor-parallel mode (inside shard_map) — ctx holds
     local heads and wo/w2 are row-parallel shards, so their matmul
-    partials all-reduce before the residual adds (fusions disabled:
-    the fused kernels bake the residual in before any reduction)."""
-    rows = 1
-    for d in x.shape[:-1]:
-        rows *= d
-    if lp.w13 is not None and psum_axis is None:
-        from tokenhawk_tpu.ops.dispatch import pallas_mode
-        from tokenhawk_tpu.ops.pallas.ffn import (
-            can_fuse_owo_ffn,
-            fused_owo_ffn,
-        )
-
-        mode = pallas_mode()
-        if mode is not None and can_fuse_owo_ffn(lp.wo, lp.w13, lp.w2,
-                                                 rows):
-            return fused_owo_ffn(ctx, x, lp.wo, lp.w13, lp.w2,
-                                 lp.ffn_norm, eps=cfg.rms_norm_eps,
-                                 interpret=(mode == "interpret"))
+    partials all-reduce before the residual adds."""
     attn = matmul(ctx, lp.wo)
     if psum_axis is not None:
         attn = jax.lax.psum(attn, psum_axis)
@@ -227,26 +127,9 @@ def _wo_ffn_block(cfg: LlamaConfig, x, ctx, lp: LayerParams,
 def _ffn_block(cfg: LlamaConfig, x, lp: LayerParams, psum_axis=None):
     """SwiGLU MLP with residual: x + silu(norm(x)@w1)*(norm(x)@w3) @ w2.
 
-    At decode row counts with symmetric quantized weights the whole block
-    runs as ONE Pallas kernel (ops/pallas/ffn.py) — w13, the elementwise
-    gate, w2, and the residual add stream in a single pass, removing a
-    kernel boundary per layer from the hot loop.  Prefill and dense/
-    affine weights keep the separate-matmul form.
-    """
-    F = cfg.n_ff
-    rows = 1
-    for d in x.shape[:-1]:
-        rows *= d
+    XLA fuses the gate, the product and the residual add around the two
+    (GEMV or GEMM) projections."""
     if lp.w13 is not None:
-        if psum_axis is None:
-            from tokenhawk_tpu.ops.dispatch import pallas_mode
-            from tokenhawk_tpu.ops.pallas.ffn import can_fuse_ffn, fused_ffn
-
-            mode = pallas_mode()
-            if mode is not None and can_fuse_ffn(lp.w13, lp.w2, rows):
-                return fused_ffn(x, lp.w13, lp.w2, lp.ffn_norm,
-                                 eps=cfg.rms_norm_eps,
-                                 interpret=(mode == "interpret"))
         gate_up = matmul(x, lp.w13, lp.ffn_norm, eps=cfg.rms_norm_eps)
         Fl = gate_up.shape[-1] // 2
         g, u = gate_up[..., :Fl], gate_up[..., Fl:]
@@ -264,37 +147,10 @@ def _layer_forward(cfg: LlamaConfig, x, lp: LayerParams, lcache, cos, sin, offse
     B, T, D = x.shape
     H, Hkv, Dh = cfg.n_head, cfg.n_kv_head, cfg.head_dim
 
-    # attn_norm fuses into the (quantized) matmul kernel; the separate
-    # wq/wk/wv form recomputes the row statistics per matmul in-kernel
-    # (trivial VPU work vs a standalone norm's reduce+convert+copy).
     Dq, Dkv = H * Dh, Hkv * Dh
-    rope_fused = False
     if lp.wqkv is not None:
-        rope = None
-        # NEGATIVE RESULT, default OFF: fusing RoPE into the wqkv kernel
-        # epilogue (roll+select rotate on the resident tile) measured
-        # 156.7-157.7 vs 161.0-161.6 tok/s unfused (7B q4 v5e,
-        # interleaved A/B) — the epilogue's lane rolls run on every
-        # N-tile while the XLA rope on the rope-half layout is already
-        # two cheap fused elementwise ops. Kept for re-evaluation.
-        if (cfg.rope_style == "half" and isinstance(lp.wqkv, QWeight)
-                and _os.environ.get("THAWK_FUSED_ROPE", "0") == "1"):
-            from tokenhawk_tpu.ops.dispatch import pallas_mode
-            from tokenhawk_tpu.ops.pallas.qmatmul import rope_fusable
-
-            if pallas_mode() is not None and rope_fusable(
-                    lp.wqkv, Dq + Dkv, Dh):
-                # Half-style RoPE rides the wqkv kernel epilogue (the
-                # q|k output tile is already resident in VMEM); the
-                # rotate's sign folds into sinE = [-sin | +sin].
-                cf = cos.reshape(B * T, Dh // 2)
-                sf = sin.reshape(B * T, Dh // 2)
-                cosE = jnp.concatenate([cf, cf], axis=-1)
-                sinE = jnp.concatenate([-sf, sf], axis=-1)
-                rope = (cosE, sinE, Dq + Dkv, Dh)
-                rope_fused = True
         qkv = matmul(x, lp.wqkv, lp.attn_norm,
-                     eps=cfg.rms_norm_eps, rope=rope)  # [B, T, Dq + 2*Dkv]
+                     eps=cfg.rms_norm_eps)  # [B, T, Dq + 2*Dkv]
         q = qkv[..., :Dq].reshape(B, T, H, Dh)
         k = qkv[..., Dq : Dq + Dkv].reshape(B, T, Hkv, Dh)
         v = qkv[..., Dq + Dkv :].reshape(B, T, Hkv, Dh)
@@ -305,44 +161,10 @@ def _layer_forward(cfg: LlamaConfig, x, lp: LayerParams, lcache, cos, sin, offse
                    eps=cfg.rms_norm_eps).reshape(B, T, Hkv, Dh)
         v = matmul(x, lp.wv, lp.attn_norm,
                    eps=cfg.rms_norm_eps).reshape(B, T, Hkv, Dh)
-    if not rope_fused:
-        q = apply_rope(q, cos, sin, cfg.rope_style)
-        k = apply_rope(k, cos, sin, cfg.rope_style)
-
-    quantized = isinstance(lp.wqkv if lp.wqkv is not None else lp.wq, QWeight)
-    fused_attn = False
-    if (quantized and T == 1 and B == 1 and H == Hkv and len(lcache) == 2
-            and _os.environ.get("THAWK_FUSED_ATTN", "0") == "1"):
-        # Fused append+attend+Wo+residual kernel (ops/pallas/attn_block).
-        # NEGATIVE RESULT, default OFF: measured 152.8-154.4 vs 157.2
-        # tok/s for the separate-kernel form (7B q4, v5e, same band) —
-        # XLA's memory-space assignment prefetches the Wo slices across
-        # kernel AND layer boundaries, which beats both the in-kernel
-        # DMA ring and the 1-deep BlockSpec pipeline. Kept env-gated for
-        # re-evaluation if the MSA behavior changes.
-        from tokenhawk_tpu.ops.dispatch import pallas_mode
-        from tokenhawk_tpu.ops.pallas.attn_block import (
-            can_fuse_attn_out,
-            fused_attn_out,
-        )
-
-        mode = pallas_mode()
-        kc, vc = lcache
-        S = kc.shape[2]
-        if mode is not None and can_fuse_attn_out(lp.wo, B, T, 1, Dh, S):
-            lengths = jnp.minimum(positions[:, 0] + 1, S).astype(jnp.int32)
-            x, kc, vc = fused_attn_out(
-                x, q, k, v, kc, vc, lengths, lp.wo,
-                interpret=(mode == "interpret"),
-            )
-            lcache = (kc, vc)
-            fused_attn = True
-    if not fused_attn:
-        ctx, lcache = _attend_and_update(cfg, q, k, v, lcache, offsets,
-                                         positions, prefer_append=quantized)
-        return _wo_ffn_block(cfg, x, ctx.reshape(B, T, D), lp), lcache
-
-    return _ffn_block(cfg, x, lp), lcache
+    q = apply_rope(q, cos, sin, cfg.rope_style)
+    k = apply_rope(k, cos, sin, cfg.rope_style)
+    ctx, lcache = _attend_and_update(cfg, q, k, v, lcache, offsets, positions)
+    return _wo_ffn_block(cfg, x, ctx.reshape(B, T, D), lp), lcache
 
 
 class QuantKVCache(NamedTuple):
@@ -454,7 +276,7 @@ def rope_half_params(cfg: LlamaConfig, params: LlamaParams):
 
     The reference rotates (x[2i], x[2i+1]) pairs
     (/root/reference/th.cpp:1457-1492); computing that directly needs
-    even/odd lane deinterleaves that Mosaic/XLA lower to layout shuffles
+    even/odd deinterleaves that XLA lowers to strided shuffles
     on every q/k per step.  Permuting each head's wq/wk OUTPUT columns
     once at load time (new j = old 2j for j < Dh/2, new Dh/2+j = old
     2j+1) makes the cheap contiguous-halves "half" rotation compute the
@@ -496,32 +318,6 @@ def rope_half_params(cfg: LlamaConfig, params: LlamaParams):
     return (
         dataclasses.replace(cfg, rope_style="half"),
         dataclasses.replace(params, layers=layers),
-    )
-
-
-def norms_2d(params: LlamaParams) -> LlamaParams:
-    """Reshape the norm gains [D] -> [1, D] once at load time.
-
-    The fused-norm matmul kernels consume the gain as a [1, K] VMEM
-    tile; reshaping a 1-D [D] array re-tiles it (T(1024) -> T(8,128)),
-    and XLA does not hoist that relayout out of the decode loop — it
-    measured 0.037 ms/tok as 65 per-token reshape ops at 7B.  [1, D]
-    gains broadcast identically everywhere else (rms_norm fallback,
-    logits)."""
-    if not isinstance(params.layers, tuple):
-        raise ValueError("norms_2d expects unrolled (tuple) layers")
-
-    def fix(lp: LayerParams) -> LayerParams:
-        return dataclasses.replace(
-            lp,
-            attn_norm=lp.attn_norm.reshape(1, -1),
-            ffn_norm=lp.ffn_norm.reshape(1, -1),
-        )
-
-    return dataclasses.replace(
-        params,
-        layers=tuple(fix(lp) for lp in params.layers),
-        norm=params.norm.reshape(1, -1),
     )
 
 
@@ -682,10 +478,9 @@ def forward_paged_decode(
         # Decode-fast unrolled form (per-layer tuple pool): the python
         # layer loop updates each donated per-layer pool array IN PLACE
         # via its dynamic-update-slice chain.  The stacked form below
-        # must carry the pool through lax.scan as xs/ys, and scan ys
-        # reallocate + rewrite the WHOLE pool every call — measured on
-        # v5e: serve decode cost scaled with pool size, not live tokens
-        # (49 ms/step @66 pages vs 28 @26; the round-4 serving gap).
+        # carries the pool through lax.scan as xs/ys, and scan ys
+        # reallocate and rewrite the whole pool every call, so its step
+        # cost grows with the pool size instead of the live tokens.
         new = []
         for lp, lcache in zip(params.layers, cache):
             x, lc = body(x, (lp, *lcache))
@@ -776,10 +571,9 @@ def forward_paged_prefill(
         # Decode-fast unrolled form (per-layer tuple pool): the python
         # layer loop updates each donated per-layer pool array IN PLACE
         # via its dynamic-update-slice chain.  The stacked form below
-        # must carry the pool through lax.scan as xs/ys, and scan ys
-        # reallocate + rewrite the WHOLE pool every call — measured on
-        # v5e: serve decode cost scaled with pool size, not live tokens
-        # (49 ms/step @66 pages vs 28 @26; the round-4 serving gap).
+        # carries the pool through lax.scan as xs/ys, and scan ys
+        # reallocate and rewrite the whole pool every call, so its step
+        # cost grows with the pool size instead of the live tokens.
         new = []
         for lp, lcache in zip(params.layers, cache):
             x, lc = body(x, (lp, *lcache))
@@ -805,7 +599,8 @@ def forward_paged_prefill_cont(
     out in place.  `start` must be page-aligned (the scheduler admits in
     page-multiple chunks), so writes are whole-page DMAs.
 
-    Attention uses the gathered-page XLA path: every chunk re-reads the
+    Attention uses the gathered-page XLA path (jnp.take on the page
+    axis): every chunk re-reads the
     history pages once, which costs the same KV traffic as ~1 decode
     step per chunk — the price of not stalling concurrent decodes for a
     whole long-prompt prefill.  Returns (hidden [B, C, D], new cache).
@@ -872,34 +667,18 @@ def forward_paged_prefill_cont(
             v_l, vs_l = paginate_fragment_layer_int8_at(
                 v_l, vs_l, v_b, page_table, start_page)
             lcache = (k_l, ks_l, v_l, vs_l)
+            from tokenhawk_tpu.runtime.paged import (
+                gather_pool_payload,
+                gather_pool_scales,
+            )
 
-            from tokenhawk_tpu.ops.dispatch import pallas_mode
+            def dq(pages, spages):
+                g = gather_pool_payload(pages, page_table)
+                sg = gather_pool_scales(spages, page_table)
+                g = g.astype(x.dtype) * sg[..., None].astype(x.dtype)
+                return g.reshape(B, Hkv, mp * ps, Dh)
 
-            _mode = pallas_mode()
-            if _mode is not None and Dh % 128 == 0 and ps % 128 == 0:
-                from tokenhawk_tpu.ops.pallas.paged_decode import (
-                    gather_pages_dense_int8,
-                )
-                from tokenhawk_tpu.runtime.paged import _contig
-
-                kq, ksq, vq, vsq = gather_pages_dense_int8(
-                    k_l, ks_l, v_l, vs_l, page_table, contig=_contig(),
-                    interpret=(_mode == "interpret"))
-                kg = (kq.astype(x.dtype) * ksq[..., None].astype(x.dtype))
-                vg = (vq.astype(x.dtype) * vsq[..., None].astype(x.dtype))
-            else:
-                from tokenhawk_tpu.runtime.paged import (
-                    gather_pool_payload,
-                    gather_pool_scales,
-                )
-
-                def dq(pages, spages):
-                    g = gather_pool_payload(pages, page_table)
-                    sg = gather_pool_scales(spages, page_table)
-                    g = g.astype(x.dtype) * sg[..., None].astype(x.dtype)
-                    return g.reshape(B, Hkv, mp * ps, Dh)
-
-                kg, vg = dq(k_l, ks_l), dq(v_l, vs_l)
+            kg, vg = dq(k_l, ks_l), dq(v_l, vs_l)
         else:
             k_l, v_l = lcache
             k_l = paginate_fragment_layer_at(k_l, k_b, page_table,
@@ -907,28 +686,12 @@ def forward_paged_prefill_cont(
             v_l = paginate_fragment_layer_at(v_l, v_b, page_table,
                                              start_page)
             lcache = (k_l, v_l)
-            from tokenhawk_tpu.ops.dispatch import pallas_mode
+            from tokenhawk_tpu.runtime.paged import gather_pool_payload
 
-            _mode = pallas_mode()
-            if _mode is not None and Dh % 128 == 0 and ps % 128 == 0:
-                # Direct page DMAs: the jnp fancy-index gather lowered
-                # to a ~330 ms/call XLA gather (vs ~12 ms of bytes) and
-                # dominated prefix-cache serving.
-                from tokenhawk_tpu.ops.pallas.paged_decode import (
-                    gather_pages_dense,
-                )
-                from tokenhawk_tpu.runtime.paged import _contig
-
-                kg, vg = gather_pages_dense(
-                    k_l, v_l, page_table, contig=_contig(),
-                    interpret=(_mode == "interpret"))
-            else:
-                from tokenhawk_tpu.runtime.paged import gather_pool_payload
-
-                kg = gather_pool_payload(k_l, page_table).reshape(
-                    B, Hkv, mp * ps, Dh)
-                vg = gather_pool_payload(v_l, page_table).reshape(
-                    B, Hkv, mp * ps, Dh)
+            kg = gather_pool_payload(k_l, page_table).reshape(
+                B, Hkv, mp * ps, Dh)
+            vg = gather_pool_payload(v_l, page_table).reshape(
+                B, Hkv, mp * ps, Dh)
         ctx = attend_cache(q, kg, vg, positions)
         return _wo_ffn_block(cfg, x, ctx.reshape(B, C, H * Dh), lp,
                              psum_axis), lcache
@@ -937,10 +700,9 @@ def forward_paged_prefill_cont(
         # Decode-fast unrolled form (per-layer tuple pool): the python
         # layer loop updates each donated per-layer pool array IN PLACE
         # via its dynamic-update-slice chain.  The stacked form below
-        # must carry the pool through lax.scan as xs/ys, and scan ys
-        # reallocate + rewrite the WHOLE pool every call — measured on
-        # v5e: serve decode cost scaled with pool size, not live tokens
-        # (49 ms/step @66 pages vs 28 @26; the round-4 serving gap).
+        # carries the pool through lax.scan as xs/ys, and scan ys
+        # reallocate and rewrite the whole pool every call, so its step
+        # cost grows with the pool size instead of the live tokens.
         new = []
         for lp, lcache in zip(params.layers, cache):
             x, lc = body(x, (lp, *lcache))
@@ -1025,10 +787,9 @@ def forward_paged_verify(
         # Decode-fast unrolled form (per-layer tuple pool): the python
         # layer loop updates each donated per-layer pool array IN PLACE
         # via its dynamic-update-slice chain.  The stacked form below
-        # must carry the pool through lax.scan as xs/ys, and scan ys
-        # reallocate + rewrite the WHOLE pool every call — measured on
-        # v5e: serve decode cost scaled with pool size, not live tokens
-        # (49 ms/step @66 pages vs 28 @26; the round-4 serving gap).
+        # carries the pool through lax.scan as xs/ys, and scan ys
+        # reallocate and rewrite the whole pool every call, so its step
+        # cost grows with the pool size instead of the live tokens.
         new = []
         for lp, lcache in zip(params.layers, cache):
             x, lc = body(x, (lp, *lcache))

@@ -3,7 +3,7 @@
 Used only by tests (SURVEY.md §4: the reference ships no tests, so the
 correctness strategy is golden comparison against a separately-written
 f32/f64 implementation).  Mirrors the math of
-/root/reference/th-llama.cpp:270-452 step by step — materialized scores,
+th-llama.cpp:270-452 step by step — materialized scores,
 explicit causal mask — with none of the device-side structure.
 """
 
@@ -49,6 +49,30 @@ def softmax_np(x, axis=-1):
     return e / e.sum(axis=axis, keepdims=True)
 
 
+def attention_np(q, k, v, q_positions, kv_len=None):
+    """Causal GQA attention of one sequence, one query head at a time.
+
+    q [T, H, Dh] at absolute positions q_positions [T]; k, v [S, Hkv, Dh]
+    for positions 0..S-1.  Query head j reads KV head j // (H // Hkv);
+    a query at position p sees keys at positions <= p (and < kv_len when
+    given).  Returns f64 [T, H, Dh]."""
+    T, H, Dh = q.shape
+    S, Hkv = k.shape[0], k.shape[1]
+    rep = H // Hkv
+    kpos = np.arange(S)
+    mask = kpos[None, :] <= np.asarray(q_positions)[:, None]  # [T, S]
+    if kv_len is not None:
+        mask &= kpos[None, :] < kv_len
+    ctx = np.zeros((T, H, Dh))
+    for j in range(H):
+        kj = k[:, j // rep, :].astype(np.float64)
+        vj = v[:, j // rep, :].astype(np.float64)
+        scores = (q[:, j, :].astype(np.float64) @ kj.T) / np.sqrt(Dh)
+        scores = np.where(mask, scores, -np.inf)
+        ctx[:, j, :] = softmax_np(scores) @ vj
+    return ctx
+
+
 def forward_np(cfg: LlamaConfig, weights: Dict[str, np.ndarray], tokens: np.ndarray):
     """Full forward of one unbatched sequence.
 
@@ -57,7 +81,6 @@ def forward_np(cfg: LlamaConfig, weights: Dict[str, np.ndarray], tokens: np.ndar
     """
     T = len(tokens)
     H, Hkv, Dh = cfg.n_head, cfg.n_kv_head, cfg.head_dim
-    rep = H // Hkv
     pos = np.arange(T)
 
     x = weights["tok_embeddings.weight"][tokens].astype(np.float64)  # [T, D]
@@ -71,15 +94,7 @@ def forward_np(cfg: LlamaConfig, weights: Dict[str, np.ndarray], tokens: np.ndar
         q = rope_np(q, pos, cfg.rope_theta, cfg.rope_style)
         k = rope_np(k, pos, cfg.rope_theta, cfg.rope_style)
 
-        # scores per query head; GQA: query head j uses kv head j // rep
-        ctx = np.zeros((T, H, Dh))
-        for j in range(H):
-            kj = k[:, j // rep, :]
-            vj = v[:, j // rep, :]
-            scores = (q[:, j, :] @ kj.T) / np.sqrt(Dh)  # [T, T]
-            mask = np.tril(np.ones((T, T), dtype=bool))
-            scores = np.where(mask, scores, -np.inf)
-            ctx[:, j, :] = softmax_np(scores) @ vj
+        ctx = attention_np(q, k, v, pos)
         x = x + ctx.reshape(T, H * Dh) @ weights[pfx + "attention.wo.weight"].astype(np.float64).T
 
         h2 = rms_norm_np(x, weights[pfx + "ffn_norm.weight"], cfg.rms_norm_eps)

@@ -1,10 +1,10 @@
-"""Attention over a dense KV cache (XLA reference path).
+"""Attention over a dense KV cache (plain XLA).
 
 Replaces the reference's materialized scores + masked/row softmax
 pipeline (/root/reference/th-llama.cpp:361-380: Q·K^T via `mat_mul`,
-`masked_softmax`/`row_softmax`, probs·V) with a single jnp expression;
-the Pallas flash-attention (prefill) and flash-decode (generation)
-kernels override this on TPU.
+`masked_softmax`/`row_softmax`, probs·V) with a single jnp expression.
+It serves prefill, the CLI engine's dense-cache decode and the paged
+fallbacks; paged decode on the GPU takes ops/pallas/paged_attention.py.
 
 Supports GQA: queries have H heads, cache has Hkv heads, H % Hkv == 0.
 Mask semantics: query at absolute position p attends to cache slots with
@@ -30,8 +30,8 @@ def attend_cache(
 ) -> jax.Array:
     """Causal attention of a query block against the full cache.
 
-    Cache layout is head-major [B, Hkv, S, Dh]: (seq, head_dim) are the
-    minor dims, which is what the TPU flash kernels tile.
+    Cache layout is head-major [B, Hkv, S, Dh].  Operands are the cache
+    dtype (bf16 in serving) with f32 accumulation and an f32 softmax.
     """
     B, T, H, Dh = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
@@ -39,58 +39,23 @@ def attend_cache(
     if scale is None:
         scale = 1.0 / (Dh**0.5)
 
-    from tokenhawk_tpu.ops.dispatch import pallas_mode
-
-    mode = pallas_mode()
-    if mode is not None and Dh % 128 == 0 and S % 128 == 0:
-        if T == 1:
-            import os
-
-            if os.environ.get("THAWK_DECODE_KERNEL", "dma") == "dma":
-                # Length-aware manual-DMA kernel: fetches only live KV
-                # blocks (the BlockSpec pipeline reads the whole S dim).
-                from tokenhawk_tpu.ops.pallas.flash_decode_dma import (
-                    flash_decode_dma,
-                )
-
-                B = q.shape[0]
-                qg = (q[:, 0] * scale).reshape(B, Hkv, rep, Dh)
-                # Clamp: a slot may advance a few steps past the cache end
-                # within one decode chunk before the host retires it.
-                lengths = jnp.minimum(q_positions[:, 0] + 1, S).astype(jnp.int32)
-                out = flash_decode_dma(
-                    qg, k_cache, v_cache, lengths,
-                    interpret=(mode == "interpret"),
-                )
-                return out.reshape(B, 1, H, Dh).astype(q.dtype)
-
-            from tokenhawk_tpu.ops.pallas.flash_decode import attend_decode
-
-            return attend_decode(
-                q, k_cache, v_cache, q_positions, scale,
-                interpret=(mode == "interpret"),
-            )
-        if T % 8 == 0:
-            from tokenhawk_tpu.ops.pallas.flash_attention import attend_prefill
-
-            return attend_prefill(
-                q, k_cache, v_cache, q_positions, scale,
-                interpret=(mode == "interpret"),
-            )
-
-    # [B, T, Hkv, rep, Dh] view of queries grouped by KV head.
-    qg = q.reshape(B, T, Hkv, rep, Dh).astype(jnp.float32)
-    kf = k_cache.astype(jnp.float32)
-    vf = v_cache.astype(jnp.float32)
-
-    scores = jnp.einsum("bthrd,bhsd->bhrts", qg, kf) * scale  # [B,Hkv,rep,T,S]
+    # Queries grouped by KV head as [B, Hkv, rep*T, Dh]: both dots are
+    # plain batched matmuls over (B, Hkv).  Operands stay in the cache
+    # dtype (no f32 copy of the cache); the dots accumulate in f32.
+    qg = (q * scale).astype(k_cache.dtype).reshape(B, T, Hkv, rep, Dh)
+    qg = qg.transpose(0, 2, 3, 1, 4).reshape(B, Hkv, rep * T, Dh)
+    scores = jnp.einsum("bhmd,bhsd->bhms", qg, k_cache,
+                        preferred_element_type=jnp.float32)
+    scores = scores.reshape(B, Hkv, rep, T, S)
 
     key_pos = jnp.arange(S)[None, None, :]  # [1, 1, S]
     mask = key_pos <= q_positions[:, :, None]  # [B, T, S]
     scores = jnp.where(mask[:, None, None, :, :], scores, _MASK_VALUE)
 
-    probs = jax.nn.softmax(scores, axis=-1)
-    ctx = jnp.einsum("bhrts,bhsd->bthrd", probs, vf)  # [B,T,Hkv,rep,Dh]
+    probs = jax.nn.softmax(scores, axis=-1).astype(v_cache.dtype)
+    ctx = jnp.einsum("bhms,bhsd->bhmd", probs.reshape(B, Hkv, rep * T, S),
+                     v_cache, preferred_element_type=jnp.float32)
+    ctx = ctx.reshape(B, Hkv, rep, T, Dh).transpose(0, 3, 1, 2, 4)
     return ctx.reshape(B, T, H, Dh).astype(q.dtype)
 
 
@@ -106,8 +71,8 @@ def update_kv_cache(
     For decode (T == 1) this is a fori_loop of scalar-start
     dynamic_update_slices rather than vmap (which lowers to scatter): a
     chain of dus on a donated buffer aliases in place, keeping the
-    per-step cache write O(1) instead of a whole-cache rewrite — the
-    single change that makes decode context-independent (BENCH_NOTES).
+    per-step cache write O(1) instead of a whole-cache rewrite, which
+    keeps decode cost independent of the cache length.
     Prefill blocks (T > 1) keep the vmap/scatter form: the write is
     amortized over T tokens, and the fori+dus pattern at prefill shapes
     trips an XLA copy-insertion RET_CHECK (b/large-block while fusion).

@@ -1,23 +1,15 @@
 """Int8 KV-cache quantization.
 
 Each cached K/V vector quantizes per (sequence, head, token) over the
-head dimension: int8 payload + one bf16 scale.  Halves KV HBM traffic at
+head dimension: int8 payload + one bf16 scale.  Halves KV memory traffic at
 long context versus bf16 (the decode KV read grows linearly with n_past
 while weights stay constant).
 
 Scale layout: `[..., S]` — one scale per token, with the TOKEN axis
-innermost (token-along-lanes on TPU).  The attention kernels never
-dequantize the K/V stream: they fold the scales into score space
-(`q.(k_i8*ksc)^T == (q.k_i8^T) * ksc_row` and
-`p.(vsc*v_i8) == (p*vsc_row).v_i8`), and a token-innermost scale is
-exactly the `[1, S]` row vector those folds consume — no transposes or
-lane shuffles in the hot kernel.  Storage overhead: 2B per 128B int8
-payload = 1.6%.
-
-The decode kernel (ops/pallas/flash_decode_int8.py) keeps the int8
-payload native all the way into the MXU (s8 x s8 -> s32 dots with the
-query and the probability rows quantized on the fly), so the quantized
-path does no per-element VPU work on the KV stream at all.
+innermost, so a score-space fold (`q.(k_i8*ksc)^T == (q.k_i8^T) *
+ksc_row`) consumes the scales as one row vector.  Storage overhead: 2B
+per 128B int8 payload = 1.6%.  Attention over int8 caches is plain XLA
+(dequantize, then attend); an int8-KV decode kernel is future work.
 
 Opt-in: engine integration is cache_dtype="int8"; this module provides
 the codec, the jnp reference attention, and the cache-update paths, all
@@ -60,8 +52,8 @@ def update_kv_cache_int8(
 
     Decode (T == 1) uses a static-unrolled chain of scalar-start
     dynamic_update_slices so the writes alias in place on the donated
-    cache (vmap lowers to scatter = whole-cache rewrite per step — the
-    context-dependent-cost bug fixed on the bf16 path, BENCH_NOTES)."""
+    cache (vmap lowers to scatter = whole-cache rewrite per step, a
+    cost that grows with the context; same fix as the bf16 path)."""
     kq, ks = quantize_kv_block(jnp.swapaxes(k_new, 1, 2))  # [B, Hkv, T, *]
     vq, vs = quantize_kv_block(jnp.swapaxes(v_new, 1, 2))
 

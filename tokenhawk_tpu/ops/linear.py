@@ -1,11 +1,12 @@
-"""Matmul over dense or quantized weights (XLA path).
+"""Matmul over dense or quantized weights.
 
-This is the portable implementation: XLA fuses the int->float convert and
-scale multiply into the dot on TPU.  The Pallas fused dequant+matmul /
-GEMV kernels in `tokenhawk_tpu.ops.pallas` override it on TPU for the
-bandwidth-critical decode path (the analogue of the reference's
-`vector_mat_mul_trans` GEMV family, /root/reference/th.cpp:2839-3139,
-redesigned for MXU/VMEM instead of workgroup shared memory).
+Decode row counts (<= 16 rows) of a supported quantized kind take the
+dequantizing GEMV kernel (ops/pallas/qgemv.py) on the GPU: it reads the
+codes once instead of writing and re-reading a dense copy.  Everything
+else is plain XLA: the codes dequantize as codes x broadcast scale
+feeding one dot, a form XLA can fuse into its GEMM operand (the
+analogue of the reference's `vector_mat_mul_trans` GEMV family,
+th.cpp:2839-3139, for the prefill-sized products).
 """
 
 from __future__ import annotations
@@ -17,70 +18,37 @@ from tokenhawk_tpu.ops.qweight import ArrayOrQ, QWeight
 
 
 def matmul(x: jax.Array, w: ArrayOrQ, norm_gain: jax.Array | None = None,
-           *, eps: float = 1e-6, accum_dtype=jnp.float32,
-           rope: tuple | None = None) -> jax.Array:
+           *, eps: float = 1e-6, accum_dtype=jnp.float32) -> jax.Array:
     """x [..., K] @ w [K, N] -> [..., N] in x.dtype, f32 accumulation.
 
-    With `norm_gain`, computes rms_norm(x, norm_gain) @ w; on the Pallas
-    quantized path the norm fuses into the kernel (the x tile is already
-    resident in VMEM — the standalone norm costs a reduce + convert +
-    staging copy per call on the decode hot path).  With `rope`
-    (cosE, sinE, rope_cols, Dh — caller gates via qmatmul.rope_fusable),
-    half-style RoPE applies to the first rope_cols output columns in the
-    kernel epilogue (fused wqkv projection).
-    """
-    if isinstance(w, QWeight):
-        from tokenhawk_tpu.ops.dispatch import pallas_mode
-
-        mode = pallas_mode()
-        if mode is not None and w.kind in ("q8_0", "q4_0", "q4_0_i4",
-                                           "qk_i4", "qk_i8", "q4k_sb"):
-            from tokenhawk_tpu.ops.pallas.qmatmul import quant_matmul
-
-            return quant_matmul(x, w, norm_gain, eps=eps, rope=rope,
-                                interpret=(mode == "interpret"))
-        assert rope is None, "rope fusion requires the Pallas quantized path"
-        if norm_gain is not None:
-            from tokenhawk_tpu.ops.norms import rms_norm
-
-            x = rms_norm(x, norm_gain, eps)
-        return _matmul_quant(x, w, accum_dtype=accum_dtype)
-    assert rope is None, "rope fusion requires the Pallas quantized path"
+    With `norm_gain`, computes rms_norm(x, norm_gain) @ w (XLA fuses the
+    norm into the producer of x)."""
     if norm_gain is not None:
         from tokenhawk_tpu.ops.norms import rms_norm
 
         x = rms_norm(x, norm_gain, eps)
+    if isinstance(w, QWeight):
+        from tokenhawk_tpu.ops.dispatch import kernel_mode
+        from tokenhawk_tpu.ops.pallas import qgemv
+
+        mode = kernel_mode("qgemv")
+        rows = x.size // x.shape[-1]
+        if mode is not None and qgemv.supported(rows, w):
+            return qgemv.qgemv(x, w, interpret=(mode == "interpret"))
+        return _matmul_quant(x, w, accum_dtype=accum_dtype)
     return jnp.dot(x, w.astype(x.dtype), preferred_element_type=accum_dtype).astype(
         x.dtype
     )
 
 
 def _matmul_quant(x: jax.Array, w: QWeight, *, accum_dtype=jnp.float32) -> jax.Array:
-    """Group-wise dequantizing matmul.
+    """Dequantizing matmul: y = x @ (codes * broadcast scales [+ mins]).
 
-    Contracts per quantization group so the scale multiply stays rank-2:
-      y = sum_g (x_g @ q_g) * s_g   (+ (sum_g x_g) @ mins_g for Q4_1)
-    which XLA maps onto the MXU with the convert fused into the dot.
-    """
-    qs = w.unpacked_qs()
-    K, N = qs.shape
-    g = w.group
-    G = K // g
-    lead = x.shape[:-1]
-    xg = x.reshape(-1, G, g).astype(accum_dtype)  # [B, G, g]
-    qg = qs.reshape(G, g, N)
-    # Batched per-group matmul: [B, G, g] x [G, g, N] -> [G, B, N]
-    pg = jax.lax.dot_general(
-        xg,
-        qg.astype(x.dtype),
-        dimension_numbers=(((2,), (1,)), ((1,), (0,))),
-        preferred_element_type=accum_dtype,
-    )  # [G, B, N]
-    y = jnp.sum(pg * w.full_scales().astype(accum_dtype)[:, None, :], axis=0)  # [B, N]
-    if w.mins is not None:
-        xs = jnp.sum(xg, axis=-1)  # [B, G]
-        y = y + jnp.dot(xs, w.mins.astype(accum_dtype), preferred_element_type=accum_dtype)
-    return y.reshape(*lead, N).astype(x.dtype)
+    The dequantized operand is one elementwise expression of the codes,
+    so XLA can fuse it into the dot instead of materialising per-group
+    partial products."""
+    wd = w.dequantize(x.dtype)
+    return jnp.dot(x, wd, preferred_element_type=accum_dtype).astype(x.dtype)
 
 
 def dense_weight(w: ArrayOrQ, dtype=jnp.float32) -> jax.Array:

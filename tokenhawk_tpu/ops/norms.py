@@ -3,7 +3,7 @@
 The reference splits the norm and the gain into two kernels
 (`cmdbuf_rms_norm` /root/reference/th.cpp:1202-1296 then
 `cmdbuf_row_element_multiply` /root/reference/th.cpp:1329-1449);
-on TPU both fuse into one VPU expression under jit.  Statistics in f32
+under jit XLA fuses both into one elementwise expression.  Statistics in f32
 regardless of activation dtype; eps matches the reference's 1e-6
 (/root/reference/th.cpp:1184).
 """

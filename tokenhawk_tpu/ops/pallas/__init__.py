@@ -1,13 +1,12 @@
-"""Pallas TPU kernels (the hot path).
+"""Pallas GPU kernels (Triton route) for the decode hot path.
 
-The reference's hand-written WGSL shaders (/root/reference/th.cpp) map to:
+The reference's hand-written WGSL shaders (th.cpp) map to:
 
-  quant matmul/GEMV  -> qmatmul.py  (vs wgsl_vector_mat_mul_transpose,
-                                     /root/reference/th.cpp:2839-2892)
-  flash attention    -> flash_attention.py (vs mat_mul+masked_softmax,
-                                     /root/reference/th.cpp:396-539,1619-1700)
-  flash decode       -> flash_decode.py (vs row_softmax decode path,
-                                     /root/reference/th.cpp:1865-1961)
+  quant GEMV          -> qgemv.py (vs wgsl_vector_mat_mul_transpose,
+                                  th.cpp:2839-2892)
+  paged decode attend -> paged_attention.py (vs the row_softmax decode
+                                  path, th.cpp:1865-1961)
+
+Every other op runs as plain XLA; `ops/dispatch.py` says which shapes
+take a kernel.
 """
-
-from tokenhawk_tpu.ops.pallas.qmatmul import quant_matmul  # noqa: F401

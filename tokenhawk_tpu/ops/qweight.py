@@ -8,12 +8,12 @@ The host loader produces `tokenhawk_tpu.ggml.quants.QuantizedTensor`
   mins:   f32  [K//G, N] affine offset (Q4_1 only)
 
 i.e. weights are stored *transposed* relative to GGML ([out, in] on disk
--> [in, out] on device) so activations contract with `x @ W` directly on
-the MXU, and the quantization groups run down the contraction dimension —
-the layout the fused Pallas dequant+matmul kernel wants.
+-> [in, out] on device) so activations contract with `x @ W` directly,
+and the quantization groups run down the contraction dimension — the
+layout the dequantizing GEMV kernel (ops/pallas/qgemv.py) walks.
 
-This is the TPU-native answer to the reference's packed-f16-in-u32
-buffers + in-shader decode (/root/reference/th.cpp:363-394).
+This replaces the reference's packed-f16-in-u32 buffers + in-shader
+decode (th.cpp:363-394).
 """
 
 from __future__ import annotations
@@ -37,25 +37,18 @@ class QWeight:
     q8_0:  qs int8 [K, N]
     q4_0:  qs uint8 [K//2, N] PACKED — byte row j holds logical row j in
            its low nibble and row j + K//2 in its high nibble, both
-           offset-binary (+8).  This is the canonical device layout: both
-           halves dequantize from contiguous slices (no lane interleave),
-           which the Pallas kernel exploits; see pallas/qmatmul.py.
+           offset-binary (+8).  Both halves dequantize from contiguous
+           slices of one byte tile (ops/pallas/qgemv.py).
     q4_1:  qs int8 [K, N] in [0, 15] with affine mins.
+    qk_i4 / qk_i8: int4 / int8 codes [K, N] with per-group scales and
+           optional affine mins (native k-quant loads).
     """
 
     qs: jax.Array
     scales: jax.Array  # [K//G, N]; q4_0: LOW-half scales [K//(2G), N]
     mins: Optional[jax.Array]  # [K//G, N] or None
-    # kind "q4_0_i4": qs is a PACKED int4 [K, N] array in logical row
-    # order (the q4_0 value-8 fits int4's [-8, 7] exactly) and `scales`
-    # holds all groups [K//G, N] (scales_hi is None).  Same 0.5 B/elt
-    # HBM footprint as the byte-packed layout, but Mosaic's hardware
-    # int4->f32 convert replaces the widen/mask/shift/sub unpack chain
-    # (~2 VPU ops/elt vs ~4.5): 657 vs 450 GB/s measured on v5e.
-    # TPU-only (XLA:CPU compiles S4 ops pathologically slowly).
-    # q4_0 only: scales of the high-half rows [K//(2G), N].  Kept as a
-    # separate array so Pallas BlockSpecs can tile each half without
-    # unaligned sublane slicing (Mosaic requires provable 8-multiples).
+    # q4_0 only: scales of the high-half rows [K//(2G), N], kept apart
+    # so each half's scales are one contiguous array.
     scales_hi: Optional[jax.Array] = None
     kind: str = dataclasses.field(metadata=dict(static=True), default="q8_0")
     group: int = dataclasses.field(metadata=dict(static=True), default=QK)
@@ -91,7 +84,7 @@ class QWeight:
 
     def unpacked_qs(self) -> jax.Array:
         """Integer codes at logical shape [..., K, N] (sign already applied)."""
-        if self.kind in ("q4_0_i4", "qk_i4", "q4k_sb"):
+        if self.kind == "qk_i4":
             return self.qs.astype(jnp.int8)
         if self.kind != "q4_0":
             return self.qs
@@ -100,23 +93,7 @@ class QWeight:
         return jnp.concatenate([lo, hi], axis=-2)
 
     def dequantize(self, dtype=jnp.float32) -> jax.Array:
-        """Materialize the dense [K, N] matrix (tests / XLA fallback)."""
-        if self.kind == "q4k_sb":
-            # super-block form: qs = code-8 int4; scales/mins = per-256
-            # d/dmin; scales_hi = [sc6 | mn6] int8 rows.
-            q = self.qs.astype(jnp.float32)  # [..., K, N], code - 8
-            K, N = q.shape[-2:]
-            sg = K // self.group
-            sc = self.scales_hi[..., :sg, :].astype(jnp.float32)
-            mn = self.scales_hi[..., sg:, :].astype(jnp.float32)
-            d = jnp.repeat(self.scales.astype(jnp.float32), 8, axis=-2)
-            dm = jnp.repeat(self.mins.astype(jnp.float32), 8, axis=-2)
-            s = d * sc  # [..., K//32, N]
-            b = 8.0 * s - dm * mn
-            lead = q.shape[:-2]
-            q3 = q.reshape(*lead, sg, self.group, N)
-            w = q3 * s[..., :, None, :] + b[..., :, None, :]
-            return w.reshape(*lead, K, N).astype(dtype)
+        """Materialize the dense [K, N] matrix (plain matmul path, tests)."""
         qs = self.unpacked_qs()
         K, N = qs.shape[-2:]
         g = self.group
@@ -129,58 +106,6 @@ class QWeight:
 
 
 ArrayOrQ = Union[jax.Array, QWeight]
-
-# q4_0 device layout: "auto" picks int4-native on TPU, byte-packed
-# elsewhere; "i4" / "packed" force.  See QWeight docstring.
-import os as _os
-
-_Q4_LAYOUT = _os.environ.get("THAWK_Q4_LAYOUT", "auto")
-
-
-def q4_use_i4() -> bool:
-    if _Q4_LAYOUT == "i4":
-        return True
-    if _Q4_LAYOUT == "packed":
-        return False
-    return jax.default_backend() == "tpu"
-
-
-@jax.jit
-def _q4_unpack_to_i4(qs, slo, shi):
-    """Packed uint8 [..., KP, N] (k_shards=1 semantics) -> int4 [..., K, N]
-    + full scales, on device."""
-    p = qs.astype(jnp.int32)
-    lo = ((p & 0x0F) - 8).astype(jnp.int4)
-    hi = ((p >> 4) - 8).astype(jnp.int4)
-    q4 = jnp.concatenate([lo, hi], axis=-2)
-    s = jnp.concatenate([slo, shi], axis=-2)
-    return q4, s
-
-
-def q4_packed_to_i4(w: QWeight) -> QWeight:
-    """Convert a k_shards=1 byte-packed q4_0 QWeight to the int4-native
-    device layout (kind "q4_0_i4").  One-time load cost: reads the packed
-    bytes once on device and writes the (equally sized) int4 array."""
-    if w.kind != "q4_0":
-        raise ValueError(f"expected q4_0, got {w.kind}")
-    q4, s = _q4_unpack_to_i4(w.qs, w.scales, w.scales_hi)
-    return QWeight(qs=q4, scales=s, mins=None, scales_hi=None,
-                   kind="q4_0_i4", group=w.group)
-
-
-def maybe_i4_params(tree):
-    """Tree-map q4_0 leaves to the int4 layout when enabled (TPU)."""
-    if not q4_use_i4():
-        return tree
-
-    def conv(leaf):
-        if isinstance(leaf, QWeight) and leaf.kind == "q4_0":
-            return q4_packed_to_i4(leaf)
-        return leaf
-
-    return jax.tree_util.tree_map(
-        conv, tree, is_leaf=lambda x: isinstance(x, QWeight))
-
 
 def pack_q4_rows(qs_t: np.ndarray, k_shards: int = 1) -> np.ndarray:
     """int8 [K, N] in [-8,7] -> packed uint8 [K//2, N].
@@ -247,7 +172,7 @@ def split_q4_scales(scales_t: np.ndarray, k_shards: int = 1):
 
 def from_kquant_raw(
     gtype, raw: bytes, shape, scale_dtype=jnp.float32,
-    use_i4: bool | None = None, sb_ok: bool = True,
+    use_i4: bool | None = None,
 ) -> QWeight:
     """GGUF k-quant block stream ([out, in] tensor) -> native device
     QWeight (bit-exact with scale_dtype=f32).
@@ -266,9 +191,11 @@ def from_kquant_raw(
       Q5_K: int8 qs = code-16, scales = s, mins = 16*s - m  (group 32)
       Q6_K: int8 qs = code,    scales = s, mins = None      (group 16)
     with dequant w = qs*scales + mins — exactly QWeight.dequantize's
-    affine form, so the generic qk Pallas kernel serves these at native
-    bandwidth (~5 bpw for Q4_K) instead of the former requantize-to-Q8_0
-    detour (~8.5 bpw on device plus a second rounding).
+    affine form, so the GEMV kernel serves these at native bandwidth
+    (~5 bpw for Q4_K) instead of a requantize-to-Q8_0 detour (~8.5 bpw
+    on device plus a second rounding).
+
+    use_i4: keep 4-bit codes as int4 (default: ops.dispatch.int4_codes).
     """
     from tokenhawk_tpu.ggml.format import GGMLType
     from tokenhawk_tpu.ggml.kquants import (
@@ -282,55 +209,12 @@ def from_kquant_raw(
     out_dim, in_dim = shape
     n = out_dim * in_dim
     if use_i4 is None:
-        use_i4 = q4_use_i4()  # int4 codes are TPU-only (XLA:CPU S4 pathology)
+        from tokenhawk_tpu.ops.dispatch import int4_codes
+
+        use_i4 = int4_codes()
 
     if gtype == GGMLType.Q4_K:
         group = 32
-        if (sb_ok and use_i4 and in_dim % 1024 == 0
-                and (in_dim % 4096 == 0 or in_dim <= 16384)
-                and _os.environ.get("THAWK_Q4K_SB", "0") == "1"):
-            # NEGATIVE RESULT, default OFF (THAWK_Q4K_SB=1 re-enables):
-            # keeping Q4_K's two quantization levels separate on device
-            # (4.63 bpw vs the flat form's 5.0) measured SLOWER than
-            # flat: 556-564 vs 635 GB/s in-kernel (0.275-0.279 vs 0.264
-            # ms/pass at square-4096 decode shapes, v5e), plus a ~6x
-            # Mosaic compile blowup — the per-tile expansion of the
-            # per-256 d/dmin to per-32 (sublane-interleaved broadcast
-            # AND a block-diagonal-MXU-dot variant both measured) plus
-            # the two extra side streams cost more than the 7.5% byte
-            # saving buys on a VPU-saturated kernel.  End-to-end 7B:
-            # 129.5 (sb) vs 140.1 (flat) tok/s.
-            # Alignment gate: the kernel slices int8 sc|mn rows at
-            # sg-row offsets (needs K % 1024) and tiles K either in
-            # 4096-multiples (16-sublane f16 d blocks) or as one
-            # whole-K block (<= 16384 keeps the VMEM tile sane).
-            # SUPER-BLOCK device layout (4.63 bpw vs the flat form's
-            # 5.0): int4 codes + int8 6-bit sc|mn + per-256 f16 d|dmin;
-            # the kernel expands s = d*sc / b = 8s - dmin*mn per tile
-            # (two sublane-broadcast multiplies).
-            from tokenhawk_tpu.ggml.kquants import extract_q4_k_sb
-
-            codes, sc6, mn6, d, dmin = extract_q4_k_sb(raw, n)
-            qs_t = np.ascontiguousarray(
-                (codes.astype(np.int16) - 8).astype(np.int8)
-                .reshape(out_dim, in_dim).T)
-            scmn = np.concatenate([
-                np.ascontiguousarray(
-                    sc6.reshape(out_dim, in_dim // 32).T),
-                np.ascontiguousarray(
-                    mn6.reshape(out_dim, in_dim // 32).T),
-            ], axis=0).astype(np.int8)  # [2*(K//32), N]
-            d_t = np.ascontiguousarray(
-                d.reshape(out_dim, in_dim // 256).T)
-            dm_t = np.ascontiguousarray(
-                dmin.reshape(out_dim, in_dim // 256).T)
-            return QWeight(
-                qs=jnp.asarray(qs_t, dtype=jnp.int4),
-                scales=jnp.asarray(d_t, dtype=scale_dtype),
-                mins=jnp.asarray(dm_t, dtype=scale_dtype),
-                scales_hi=jnp.asarray(scmn),
-                kind="q4k_sb", group=group,
-            )
         codes, s, m = extract_q4_k(raw, n)
         if use_i4:
             qs_np = (codes.astype(np.int16) - 8).astype(np.int8)
@@ -401,22 +285,6 @@ def to_qk16(w: QWeight) -> QWeight:
     grows (group-16 affine int8 = 1.25 B/elt)."""
     if w.kind == "qk_i8" and w.group == 16 and w.mins is not None:
         return w
-    if w.kind == "q4k_sb":
-        # expand the super-block structure to flat per-16 affine int8
-        K = w.qs.shape[-2]
-        sg = K // w.group
-        sc = w.scales_hi[..., :sg, :].astype(jnp.float32)
-        mn = w.scales_hi[..., sg:, :].astype(jnp.float32)
-        d = jnp.repeat(w.scales.astype(jnp.float32), 8, axis=-2)
-        dm = jnp.repeat(w.mins.astype(jnp.float32), 8, axis=-2)
-        s = d * sc
-        b = 8.0 * s - dm * mn
-        return QWeight(
-            qs=w.qs.astype(jnp.int8),
-            scales=jnp.repeat(s, 2, axis=-2),  # f32: keeps d*sc exact
-            mins=jnp.repeat(b, 2, axis=-2),
-            scales_hi=None, kind="qk_i8", group=16,
-        )
     if w.kind in ("qk_i4", "qk_i8", "q8_0"):
         qs = w.qs.astype(jnp.int8)
         rep = w.group // 16
@@ -441,8 +309,8 @@ def from_quantized_tensor(
     if qt.qs.ndim != 2:
         raise ValueError(f"expected 2-D weight, got {qt.shape}")
     if qt.kind in (GGMLType.Q5_0, GGMLType.Q5_1):
-        # 5-bit codes don't pack into int4; serve via the generic affine
-        # int8 kernel (qk_i8): Q5_0 symmetric [-16,15], Q5_1 affine
+        # 5-bit codes don't pack into int4; serve as the affine int8
+        # layout (qk_i8): Q5_0 symmetric [-16,15], Q5_1 affine
         # [0,31] with per-group mins.
         qs_t = jnp.asarray(np.ascontiguousarray(qt.qs.T))  # int8 [in, out]
         s_t = jnp.asarray(np.ascontiguousarray(qt.scales.T),

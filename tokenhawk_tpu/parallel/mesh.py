@@ -7,9 +7,11 @@ Axes:
             see parallel/cp.py)
 
 The reference has no multi-device layer at all (SURVEY.md §2.6); its
-k-way split-GEMV + local reduce (/root/reference/th.cpp:3795-3912,
-:4042-4127) is the single-chip seed of exactly this "model" axis — here
-the splits live on different chips and the reduce is an XLA psum over ICI.
+k-way split-GEMV + local reduce (th.cpp:3795-3912, :4042-4127) is the
+one-device seed of exactly this "model" axis — here the splits live on
+different cards and the reduce is an XLA psum (NCCL over NVLink).  The
+cards of a host are joined all to all, so a mesh is a plain reshape of
+`jax.devices()` and its shape follows the algorithm alone.
 """
 
 from __future__ import annotations
@@ -31,10 +33,10 @@ def make_pp_mesh(
 ) -> Mesh:
     """Build a (data, stage) mesh for pipeline parallelism (parallel/pp.py).
 
-    The stage axis is the one mesh axis meant to ride DCN rather than
-    ICI: stage boundaries exchange only [B, T, D] activations per hop
-    (vs TP's per-layer all-reduces), the classic multi-host cut for
-    models too big for one host's HBM (SURVEY §2.6, 70B config)."""
+    The stage axis is the one mesh axis meant to cross hosts: stage
+    boundaries exchange only [B, T, D] activations per hop (vs TP's
+    per-layer all-reduces), the classic multi-host cut for models too
+    big for one host's cards (SURVEY §2.6, 70B config)."""
     if devices is None:
         devices = jax.devices()
     n = len(devices)

@@ -22,7 +22,8 @@ fixed-shape length, then the payload), i.e. the same device collectives
 as the model — no side channel to configure.
 
 The reference has no multi-process anything (SURVEY.md §2.6); this is
-the TPU-native design for its serving capability at the 70B scale.
+the JAX multi-controller design for its serving capability at the
+70B scale.
 Exercised in CI via an in-process fake transport pair
 (tests/test_multihost_serving.py); the broadcast path is the standard
 multihost_utils idiom and activates under a real per-host launcher.

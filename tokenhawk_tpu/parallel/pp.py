@@ -2,7 +2,7 @@
 
 The model's layers split into `pp` contiguous stages over the "stage"
 mesh axis; stage boundaries exchange only the [*, T, D] activation via
-`ppermute`, which is why this is the axis meant for DCN (multi-host 70B,
+`ppermute`, which is why this is the axis meant to cross hosts (70B,
 SURVEY §2.6) — TP all-reduces per layer, PP hops once per stage.
 
 Layout: params stay in the STACKED form (LlamaParams.layers leaves

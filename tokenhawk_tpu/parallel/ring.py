@@ -91,37 +91,8 @@ def ring_attention(
             return shard + jnp.arange(T) * n_shards
         return shard * T + jnp.arange(T)
 
-    from tokenhawk_tpu.ops.dispatch import pallas_mode
-
-    mode = pallas_mode()
-    use_kernel = mode is not None and Dh % 128 == 0 and T % 8 == 0
-    Hkv = k_local.shape[1]
-    rep = H // Hkv
-    stride = n_shards if layout == "cyclic" else 1
-
     def step_stats(src, k_blk, v_blk):
         """One ring step's softmax partials (o_unnorm, m, l)."""
-        if use_kernel:
-            # Flash path: scores stay in VMEM — the jnp fallback
-            # materializes [B, H, T, T] per step, which defeats
-            # long-context CP (the whole point of the ring).
-            from tokenhawk_tpu.ops.pallas.flash_attention import (
-                flash_attention_stats,
-            )
-
-            q_start = idx if layout == "cyclic" else idx * T
-            k_start = src if layout == "cyclic" else src * T
-            ob, mb, lb = flash_attention_stats(
-                q.reshape(B, Hkv, rep, T, Dh), k_blk, v_blk,
-                jnp.broadcast_to(q_start, (B,)),
-                jnp.broadcast_to(k_start, (B,)),
-                stride=stride, interpret=(mode == "interpret"),
-            )
-            return (
-                ob.reshape(B, H, T, Dh),
-                mb[..., 0:1].reshape(B, H, T, 1),
-                lb[..., 0:1].reshape(B, H, T, 1),
-            )
         kpos = pos_of(src)  # [T]
         mask = kpos[None, None, :] <= qpos[None, :, None]  # [1, T, T]
         return _block_attend_stats(
@@ -161,42 +132,21 @@ def decode_attend_cp(
     with pmax/psum.  A shard with zero valid slots contributes l=0.
     """
     B, H, Dh = q.shape
-    Hkv = k_shard.shape[1]
-    rep = H // Hkv
     S = k_shard.shape[2]
     if scale is None:
         scale = 1.0 / (Dh**0.5)
 
-    from tokenhawk_tpu.ops.dispatch import pallas_mode
+    qf = q.astype(jnp.float32)[:, :, None, :] * scale  # [B, H, 1, Dh]
+    slot = jnp.arange(S)[None, None, :]  # [1, 1, S]
+    mask = slot < shard_lengths[:, None, None]  # [B, 1, S]
+    o, m, l = _block_attend_stats(qf, k_shard, v_shard, mask)
 
-    mode = pallas_mode()
-    if mode is not None and Dh % 128 == 0 and S % 128 == 0:
-        # Per-shard partials from the length-aware DMA kernel (length 0
-        # emits the merge identity), merged across chips below.
-        from tokenhawk_tpu.ops.pallas.flash_decode_dma import (
-            flash_decode_stats,
-        )
-
-        qg = (q.astype(jnp.float32) * scale).reshape(B, Hkv, rep, Dh)
-        o_k, m_k, l_k = flash_decode_stats(
-            qg.astype(k_shard.dtype), k_shard, v_shard, shard_lengths,
-            interpret=(mode == "interpret"),
-        )
-        o = o_k.reshape(B, H, 1, Dh)
-        m = m_k[:, :, 0:1].reshape(B, H, 1, 1)
-        l = l_k[:, :, 0:1].reshape(B, H, 1, 1)
-    else:
-        qf = q.astype(jnp.float32)[:, :, None, :] * scale  # [B, H, 1, Dh]
-        slot = jnp.arange(S)[None, None, :]  # [1, 1, S]
-        mask = slot < shard_lengths[:, None, None]  # [B, 1, S]
-        o, m, l = _block_attend_stats(qf, k_shard, v_shard, mask)
-
-        # Fully-masked rows give p = exp(MASK - MASK) = 1 per slot; zero
-        # empty shards to the merge identity.
-        empty = (shard_lengths == 0)[:, None, None, None]
-        o = jnp.where(empty, 0.0, o)
-        l = jnp.where(empty, 0.0, l)
-        m = jnp.where(empty, -jnp.inf, m)
+    # Fully-masked rows give p = exp(MASK - MASK) = 1 per slot; zero
+    # empty shards to the merge identity.
+    empty = (shard_lengths == 0)[:, None, None, None]
+    o = jnp.where(empty, 0.0, o)
+    l = jnp.where(empty, 0.0, l)
+    m = jnp.where(empty, -jnp.inf, m)
 
     m_g = jax.lax.pmax(m, axis_name)
     alpha = jnp.where(jnp.isinf(m) & (m < 0), 0.0, jnp.exp(m - m_g))

@@ -11,8 +11,8 @@ Megatron-style tensor parallelism over the "model" axis:
 
 XLA inserts the all-reduce after the row-parallel contractions — the
 multi-chip realization of the reference's split-GEMV + `vector_reduce`
-pattern (/root/reference/th.cpp:3795-3912, :4042-4127), with the reduce
-riding ICI instead of a same-device buffer pass.
+pattern (th.cpp:3795-3912, :4042-4127), with the reduce riding NVLink
+instead of a same-device buffer pass.
 
 Quantized weights shard positionally identically: qs [K, N] and
 scales/mins [K//32, N] take the same PartitionSpec (the group axis

@@ -14,8 +14,8 @@ with Megatron-style TP over the "model" axis and data parallelism over
   sampling:    replicated (same key everywhere -> same sample)
 
 This is the multi-chip realization of the reference's k-way split-GEMV +
-`vector_reduce` pattern (/root/reference/th.cpp:3795-3912, :4042-4127)
-with the reduce riding ICI.  Weight layout contract: see
+`vector_reduce` pattern (th.cpp:3795-3912, :4042-4127) with the reduce
+riding NVLink.  Weight layout contract: see
 `param_specs_tp` and `pack_q4_rows` (row-parallel q4 weights are packed
 per shard).
 """
@@ -206,8 +206,8 @@ def _forward_tp(cfg: LlamaConfig, tp: int, params: LlamaParams, tokens, cache,
 
     Unrolled is the decode-fast form: the stacked scan returns the cache
     as scan ys, which reallocates and rewrites the WHOLE cache every
-    step (the context-dependent-cost bug fixed on single chip,
-    BENCH_NOTES.md); the unrolled loop's dynamic_update_slice chains
+    step (a cost that grows with the context, fixed the same way on
+    one device); the unrolled loop's dynamic_update_slice chains
     alias in place on the donated per-layer buffers.
     """
     x = _embed_vocab_parallel(params.tok_embd, tokens, tp)

@@ -5,7 +5,7 @@ The page pool [L, Hkv, n_pages, ps, Dh] shards along the KV-head axis —
 the same Megatron head split as the dense TP path (parallel/tp.py), so
 column-parallel wqkv/w13 shards produce exactly the local heads whose
 pages live on the shard, attention is fully local, and the row-parallel
-wo/w2 partials all-reduce over ICI.  Page TABLES, lengths, and token ids
+wo/w2 partials all-reduce over NVLink.  Page TABLES, lengths, and token ids
 stay replicated (they are tiny host-driven control state); the paged
 forwards themselves run per shard with a LOCAL head-count config and
 psum hooks (models/llama.py forward_paged_* psum_axis).

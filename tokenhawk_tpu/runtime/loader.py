@@ -78,8 +78,8 @@ def load_model(
 ) -> Tuple[LlamaConfig, LlamaParams, Tokenizer]:
     """Load a GGML model onto the device.
 
-    `retries`: transient host->device failures (a flaky runtime/relay,
-    an interrupted transfer) retry with backoff from a fresh mmap; the
+    `retries`: transient host->device failures (an interrupted
+    transfer) retry with backoff from a fresh mmap; the
     reference just latches a loadFailed flag and gives up
     (/root/reference/th-llama-loader.cpp:473-476).
     """
@@ -172,25 +172,19 @@ def _load_model_once(
                 and "norm" not in name and name != "tok_embeddings.weight"):
             if tp == 1 and _os.environ.get("THAWK_KQUANT_NATIVE", "1") == "1":
                 # NATIVE k-quant device path: the super-block structure
-                # reduces to per-group affine int codes the generic qk
-                # Pallas kernel serves directly — ~5 bpw on device for
-                # Q4_K vs the requantize detour's ~8.5.  Bit-exact at
+                # reduces to per-group affine int codes the GEMV kernel
+                # serves directly — ~5 bpw on device for Q4_K vs the
+                # requantize detour's ~8.5.  Bit-exact at
                 # scale_dtype=f32; the default bf16 rounds the affine
                 # sides (see ops/qweight.from_kquant_raw).
                 from tokenhawk_tpu.ops.qweight import from_kquant_raw
 
-                # w2 stays in the FLAT affine form: the fused gated-FFN
-                # kernel tiles w2's sides per F-tile, which the Q4_K
-                # super-block layout's sublane alignment can't serve
-                # (and the sb side saving on w2 is ~0.05% of traffic vs
-                # the fusion's +4.2%).
                 tensors[name] = from_kquant_raw(
                     rec.ggml_type, bytes(f.raw(name)), rec.shape,
-                    scale_dtype=scale_dtype,
-                    sb_ok=not name.endswith("feed_forward.w2.weight"))
+                    scale_dtype=scale_dtype)
                 continue
-            # TP fallback: requantize to Q8_0 for the shard-packed
-            # kernels (q8 rounding is negligible vs the k-quant's).
+            # TP fallback: requantize to Q8_0, which shards by rows
+            # (q8 rounding is negligible vs the k-quant's).
             from tokenhawk_tpu.ggml.quants import quantize
 
             tensors[name] = quantize(
@@ -208,19 +202,11 @@ def _load_model_once(
         # even/odd lane shuffles); outputs are numerically identical.
         cfg, params = rope_half_params(cfg, params)
     if mesh is None:
-        from tokenhawk_tpu.models.llama import (
-            fuse_params,
-            norms_2d,
-            unstack_params,
-        )
-        from tokenhawk_tpu.ops.qweight import maybe_i4_params
+        from tokenhawk_tpu.models.llama import fuse_params, unstack_params
 
         # Single chip: fused wqkv/w13 + unrolled per-layer buffers (no
-        # scan -> the KV cache isn't rewritten as scan ys every step;
-        # +17% decode at 2048 ctx, see BENCH_NOTES.md).  q4_0 weights
-        # then convert to the int4-native layout on TPU (657 vs 450 GB/s
-        # decode weight stream; ops/qweight.py).
-        params = norms_2d(maybe_i4_params(unstack_params(fuse_params(params))))
+        # scan -> the KV cache isn't rewritten as scan ys every step).
+        params = unstack_params(fuse_params(params))
     if mesh is not None:
         if parallel == "tp":
             from tokenhawk_tpu.models.llama import unstack_params

@@ -3,8 +3,7 @@
 The dense per-slot cache (`KVCache`) reserves max_seq for every slot;
 under continuous batching with mixed sequence lengths that wastes HBM.
 The paged cache allocates fixed-size pages on demand and maps them
-through a per-sequence page table — the vLLM/paged-attention design,
-realized TPU-style:
+through a per-sequence page table — the vLLM/paged-attention design:
 
   k_pages / v_pages : [L, n_pages, Hkv, page_size, Dh]   (contig, default)
                       [L, Hkv, n_pages, page_size, Dh]   (head — THAWK_POOL_LAYOUT=head)
@@ -12,9 +11,8 @@ realized TPU-style:
   lengths           : [B]             tokens currently stored
 
 The contig (page-major) layout keeps all of a page's heads adjacent in
-HBM, so a decode-walk head-group slab is ONE contiguous DMA run instead
-of Hkv strided 32 KB runs — the short-walk DMA floor measured at 62% of
-stream peak in the round-5 attend analysis (BENCH_NOTES).
+device memory; the head-major layout keeps one head's pages adjacent.
+The decode kernel reads either through a strided per-head view.
 
 This replaces the reference's dense per-conversation KV buffers sized
 n_ctx (/root/reference/th-llama-loader.cpp:428-429).
@@ -22,8 +20,10 @@ n_ctx (/root/reference/th-llama-loader.cpp:428-429).
 Layer-sliced ops (`*_layer`) take one layer's pages
 [Hkv, n_pages, ps, Dh] so they compose with lax.scan over layers; the
 layer-indexed wrappers operate on the full [L, ...] arrays.  Decode
-attention uses the Pallas paged flash-decode kernel on TPU
-(ops/pallas/paged_decode.py) and an XLA gather fallback elsewhere.
+attention uses the Pallas paged decode kernel on the GPU
+(ops/pallas/paged_attention.py) and an XLA gather fallback elsewhere;
+appends and page gathers are plain XLA (dynamic_update_slice / take on
+the page axis).
 
 Host-side page allocation is a free list (`PageAllocator`), owned by the
 scheduler.
@@ -44,18 +44,12 @@ from tokenhawk_tpu.config import LlamaConfig
 def pool_layout() -> str:
     """Physical page-pool layout, process-global (THAWK_POOL_LAYOUT).
 
-    "head"   — [.., Hkv, n_pages, ps, Dh]: head-major.  A page-walk DMA
-               for a head group is Hkv strided runs of ps*Dh bytes
-               (32 KB at ps=Dh=128 bf16) — measured 62% of stream peak
-               at short walks (BENCH_NOTES round 5).
-    "contig" — [.., n_pages, Hkv, ps, Dh]: page-major.  All heads of a
-               page are adjacent, so the same walk DMA is ONE contiguous
-               hb*ps*Dh run — the "contiguous (slot, block) slab" layout
-               the round-5 DMA-floor analysis called for.
+    "head"   — [.., Hkv, n_pages, ps, Dh]: head-major.
+    "contig" — [.., n_pages, Hkv, ps, Dh]: page-major (default); all
+               heads of a page are adjacent.
 
     The layout is read at pool creation AND at trace time inside the
-    paged ops, so it must not change mid-process (same contract as the
-    other THAWK_* trace-time knobs)."""
+    paged ops, so it must not change mid-process."""
     v = os.environ.get("THAWK_POOL_LAYOUT", "contig")
     if v not in ("head", "contig"):
         raise ValueError(f"THAWK_POOL_LAYOUT must be head|contig, got {v!r}")
@@ -102,13 +96,11 @@ def make_unrolled_pool(cfg: LlamaConfig, n_pages: int, page_size: int = 128,
     """Per-layer tuple page pool: tuple of (k_l, v_l), each
     [Hkv, n_pages, ps, Dh].
 
-    THE decode-fast form (the same fix that made the dense cache
-    context-independent, BENCH_NOTES round 1): the stacked [L, ...]
-    pool must ride `lax.scan` as xs/ys, and scan ys REALLOCATE AND
-    REWRITE the whole pool every step — measured 49 ms/step at 66 pages
-    vs 28 at 26 on v5e, i.e. serve decode cost scaled with POOL SIZE,
-    not live tokens (the round-4 5x serving gap).  Per-layer donated
-    arrays updated by dynamic_update_slice chains alias in place."""
+    THE decode-fast form: the stacked [L, ...] pool must ride
+    `lax.scan` as xs/ys, and scan ys reallocate and rewrite the whole
+    pool every step, so serve decode cost would scale with the pool
+    size instead of the live tokens.  Per-layer donated arrays updated
+    by dynamic_update_slice chains alias in place."""
     if _contig():
         shape = (n_pages, cfg.n_kv_head, page_size, cfg.head_dim)
     else:
@@ -210,20 +202,6 @@ def append_token_layer(
     page = jnp.take_along_axis(page_table, (positions // ps)[:, None], axis=1)[:, 0]
     slot = positions % ps
 
-    from tokenhawk_tpu.ops.dispatch import pallas_mode
-
-    mode = pallas_mode()
-    if (mode is not None and pages.shape[3] % 128 == 0 and ps % 8 == 0):
-        # Kernel-side aliased slab RMW: the jnp dus formulation below
-        # made XLA layout assignment flip the whole pool to a
-        # token-contiguous layout and relayout-copy every pool array
-        # back for the attention kernel each step (13.5 ms/step at 66
-        # pages — the round-4 serve trace).
-        from tokenhawk_tpu.ops.pallas.paged_decode import paged_append_rows
-
-        return paged_append_rows(pages, new, page, slot,
-                                 contig=_contig(),
-                                 interpret=(mode == "interpret"))
     B = new.shape[0]
     contig = _contig()
 
@@ -303,38 +281,22 @@ def attend_paged_layer(
 ) -> jax.Array:
     B, T, H, Dh = q.shape
     Hkv = k_pages_l.shape[pool_head_axis()]
-    rep = H // Hkv
     if scale is None:
         scale = 1.0 / (Dh**0.5)
 
-    from tokenhawk_tpu.ops.dispatch import pallas_mode
+    from tokenhawk_tpu.ops.dispatch import kernel_mode
+    from tokenhawk_tpu.ops.pallas import paged_attention
 
-    mode = pallas_mode()
-    if mode == "compiled" and Dh % 128 == 0 and k_pages_l.shape[2] % 128 == 0:
-        import os as _os
+    mode = kernel_mode("paged_attention")
+    ps = k_pages_l.shape[2]
+    if mode is not None and paged_attention.supported(
+            H, Dh, ps, page_table.shape[1], Hkv):
+        out = paged_attention.paged_decode(
+            q[:, 0] * scale, k_pages_l, v_pages_l, page_table, lengths,
+            contig=_contig(), interpret=(mode == "interpret"))
+        return out[:, None].astype(q.dtype)
 
-        from tokenhawk_tpu.ops.pallas.paged_decode import (
-            paged_flash_decode,
-            paged_flash_decode_walk,
-        )
-
-        fn = (paged_flash_decode_walk
-              if _os.environ.get("THAWK_DECODE_WALK", "1") == "1"
-              else paged_flash_decode)
-        qg = (q[:, 0] * scale).reshape(B, Hkv, rep, Dh)
-        # Under contig, 16-head groups beat 32 when they tile Hkv (two
-        # cells keep two slab DMAs in flight; on-chip A/B: B=1 10.2 vs
-        # 12.6 us/layer, B=8 wash).  When 16 does NOT divide Hkv (13B's
-        # 40) asking for 16 would land on hb=8 — 5 cells x full walk
-        # measured ~9% slower than the whole-axis block, so keep the
-        # head-layout request there.  BENCH_NOTES round-5 contig log.
-        hb_req = 16 if (_contig() and Hkv % 16 == 0) else 32
-        out = fn(qg, k_pages_l, v_pages_l, page_table,
-                 lengths.astype(jnp.int32),
-                 head_block=hb_req, contig=_contig())
-        return out.reshape(B, 1, H, Dh).astype(q.dtype)
-
-    # XLA gather fallback
+    # XLA gather fallback: copies every page of the table
     from tokenhawk_tpu.ops.attention import attend_cache
 
     kg = gather_pool_payload(k_pages_l, page_table)  # [B, Hkv, mp, ps, Dh]
@@ -391,11 +353,8 @@ def paged_attend_decode(cache: PagedKVCache, q, page_table, lengths, layer,
 
 
 class PagedQuantKVCache(NamedTuple):
-    """int8 paged KV: payload pages + per-token scale pages
-    (token-innermost, ops/kvquant.py layout).  Scales are f32 here (not
-    bf16 like the dense cache): the kernel DMAs one [1, ps] scale row
-    per page, and bf16's 2-sublane packing rejects a size-1 sublane
-    slice (Mosaic tiling); f32 packs 1/sublane and the cost is ~3% of
+    """int8 paged KV: payload pages + per-token f32 scale pages
+    (token-innermost, ops/kvquant.py layout); the scales cost ~3% of the
     payload bytes."""
 
     k_pages: jax.Array  # int8 [L, Hkv, n_pages, ps, Dh]
@@ -442,26 +401,6 @@ def append_token_layer_int8(
     slot = positions % ps
     B = new.shape[0]
     q8, sc = quantize_kv_block(new)  # int8 [B, Hkv, Dh], bf16 [B, Hkv]
-
-    from tokenhawk_tpu.ops.dispatch import pallas_mode
-
-    mode = pallas_mode()
-    if (mode is not None and pages.shape[3] % 128 == 0 and ps % 8 == 0
-            and ps % 128 == 0):
-        # Kernel-side aliased RMW writes (same rationale as the bf16
-        # append: the jnp dus formulation biases XLA layout assignment
-        # into whole-pool relayout copies every step).
-        from tokenhawk_tpu.ops.pallas.paged_decode import (
-            paged_append_rows,
-            paged_append_scales,
-        )
-
-        interp = mode == "interpret"
-        pages = paged_append_rows(pages, q8, page, slot, contig=_contig(),
-                                  interpret=interp)
-        spages = paged_append_scales(spages, sc, page, slot,
-                                     contig=_contig(), interpret=interp)
-        return pages, spages
 
     contig = _contig()
 
@@ -565,31 +504,8 @@ def attend_paged_layer_int8(
 ) -> jax.Array:
     B, T, H, Dh = q.shape
     Hkv = k_pages_l.shape[pool_head_axis()]
-    rep = H // Hkv
     if scale is None:
         scale = 1.0 / (Dh**0.5)
-
-    from tokenhawk_tpu.ops.dispatch import pallas_mode
-
-    mode = pallas_mode()
-    if mode == "compiled" and Dh % 128 == 0 and k_pages_l.shape[2] % 128 == 0:
-        import os as _os
-
-        from tokenhawk_tpu.ops.pallas.paged_decode_int8 import (
-            paged_flash_decode_int8,
-            paged_flash_decode_int8_walk,
-        )
-
-        fn = (paged_flash_decode_int8_walk
-              if _os.environ.get("THAWK_DECODE_WALK", "1") == "1"
-              else paged_flash_decode_int8)
-        qg = (q[:, 0] * scale).reshape(B, Hkv, rep, Dh)
-        hb_req = 16 if (_contig() and Hkv % 16 == 0) else 32
-        out = fn(
-            qg, k_pages_l, ks_pages_l, v_pages_l, vs_pages_l, page_table,
-            lengths.astype(jnp.int32),
-            head_block=hb_req, contig=_contig())
-        return out.reshape(B, 1, H, Dh).astype(q.dtype)
 
     # XLA gather + dequantize fallback
     from tokenhawk_tpu.ops.attention import attend_cache

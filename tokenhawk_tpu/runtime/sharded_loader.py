@@ -13,11 +13,11 @@ shard covers (the multi-host generalization of the reference's
   * disk reads are numpy views into the mmap, so the OS pages in only
     the touched ranges.
 
-70B memory math (q4_0, tp=16 over 2 hosts x 8 chips): weights ~36.5 GB
-packed -> 2.3 GB per chip, 18.2 GB materialized per host during load
+70B memory math (q4_0, tp=16 over 2 hosts x 8 cards): weights ~36.5 GB
+packed -> 2.3 GB per card, 18.2 GB materialized per host during load
 (vs 36.5 GB/host through the dense loader); f16 doubles to ~69 GB total,
-4.3 GB/chip — under a v5e's 16 GB HBM either way, and host RSS stays at
-the per-host shard total instead of the full model.
+4.3 GB/card, and host RSS stays at the per-host shard total instead of
+the full model.
 
 Layout contracts match params_from_ggml/parallel.tp exactly:
 2-D weights transpose to [in, out]; q4_0 packs nibbles per K-shard

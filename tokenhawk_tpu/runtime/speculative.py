@@ -1,7 +1,7 @@
 """Speculative decoding: a small draft model proposes, the target verifies.
 
-Decode is weight-stream-bound (BENCH_NOTES): a 7B forward over T=1 and
-T=gamma+1 tokens costs nearly the same HBM time, so verifying gamma
+Decode is weight-stream-bound: a 7B forward over T=1 and T=gamma+1
+tokens reads the same weight bytes, so verifying gamma
 draft tokens in ONE target pass multiplies tokens/step by the acceptance
 length.  Classic speculative decoding (greedy form): the target's
 argmax over the drafted prefix either reproduces each draft token
@@ -9,7 +9,7 @@ argmax over the drafted prefix either reproduces each draft token
 is EXACTLY the target-only greedy stream regardless of draft quality —
 the draft only changes speed, never content.
 
-TPU-shaped details:
+Device-side details:
 
   * Everything runs in one jitted step per round: the draft's
     gamma-step `lax.scan`, the target's single [B, gamma+1] forward,

@@ -4,7 +4,7 @@
 
 Reference parity: the web frontend's serve.py + WASM chat
 (/root/reference/web/serve.py:1-20, web/main.cpp:82-179), except the
-model runs server-side on TPU behind an SSE streaming API, with
+model runs server-side on the GPU behind an SSE streaming API, with
 continuous batching, multi-turn sessions, per-request sampling, and
 optional speculative decoding (--draft-model).
 """
@@ -18,7 +18,7 @@ import time
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="tokenhawk-serve", description="TPU-native LLaMA chat server"
+        prog="tokenhawk-serve", description="Quantized LLaMA chat server"
     )
     p.add_argument("-m", "--model", help="GGML model file")
     p.add_argument("-d", "--dir", help="TH chunk directory (split model)")
@@ -70,6 +70,10 @@ def main(argv=None) -> int:
     model_path = args.model or args.dir
     if not model_path:
         parser.error("one of -m/--model or -d/--dir is required")
+
+    from tokenhawk_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import jax.numpy as jnp
 

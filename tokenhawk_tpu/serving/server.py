@@ -5,7 +5,7 @@ Capability parity with the reference's browser frontend
 tokens into the DOM via the onNewToken callback), rebuilt as a
 server-side component: stdlib HTTP server + Server-Sent-Events token
 streaming, backed by the continuous-batching scheduler so many chats
-share the TPU.
+share the accelerator.
 
 Endpoints:
   GET  /            chat UI (static HTML/JS, serving/web/)
@@ -51,8 +51,14 @@ _template_cache: dict = {}
 
 
 def _render_chat_template(tmpl: str, messages) -> str:
-    import jinja2
-    import jinja2.sandbox
+    try:
+        import jinja2
+        import jinja2.sandbox
+    except ImportError:
+        raise RuntimeError(
+            "this model's chat template needs the jinja2 package, which is "
+            "not installed; send /v1/completions or /generate instead"
+        ) from None
 
     if len(tmpl) > _TEMPLATE_MAX_BYTES:
         raise jinja2.TemplateError("chat template too large")

@@ -1,6 +1,6 @@
 // Streaming chat client: POST /generate, read SSE events, append tokens
 // to the newest bot message (the role web/chat.js:21-68 plays for the
-// reference's WASM build — here the model runs server-side on TPU).
+// reference's WASM build — here the model runs server-side on the GPU).
 
 const log = document.getElementById("log");
 const form = document.getElementById("form");

@@ -6,35 +6,49 @@ cli/main.cpp:92).  Here:
 
   - `trace()` wraps `jax.profiler` for real device traces (TensorBoard
     or xprof-compatible);
-  - roofline accounting: bytes a decode step must move vs the chip's HBM
-    bandwidth, giving the speed-of-light tok/s the BASELINE holds
-    kernels against (>=90% target).
+  - roofline accounting: bytes a decode step must move vs the device's
+    published memory bandwidth (and prefill FLOPs vs its bf16 peak),
+    from one table keyed by `device_kind`.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Optional
+import subprocess
 
 import jax
 
-# Per-chip HBM bandwidth (GB/s). Sources: public TPU spec sheets.
-HBM_GBPS = {
-    "v4": 1228.0,
-    "v5e": 819.0,
-    "v5p": 2765.0,
-    "v6e": 1640.0,
+# Published peaks per device, keyed by `jax.Device.device_kind`.
+# Source: NVIDIA H100 data sheet (SXM part, dense, no sparsity), at the
+# full 700 W power limit.  A card set to a lower limit cannot hold these
+# rates under load, so every share is reported beside the card's limit.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": dict(hbm_gbps=3350.0, bf16_tflops=989.0),
 }
 
-# Per-chip peak MXU throughput, bf16 TFLOP/s (public spec sheets).
-MXU_TFLOPS_BF16 = {
-    "v4": 275.0,
-    "v5e": 197.0,
-    "v5p": 459.0,
-    "v6e": 918.0,
-}
 
-DEFAULT_CHIP = "v5e"
+def device_peaks(device_kind: str | None = None) -> dict:
+    """{"hbm_gbps", "bf16_tflops"} of `device_kind` (default: the first
+    JAX device).  A device missing from PEAKS is an error, not a default."""
+    if device_kind is None:
+        device_kind = jax.devices()[0].device_kind
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(f"no published peaks for device kind {device_kind!r}; "
+                       f"known: {sorted(PEAKS)}") from None
+
+
+def card_description() -> str:
+    """The first GPU's name and power limit as nvidia-smi reports them
+    ("NVIDIA H100 80GB HBM3, 700.00 W"); every measured number is
+    reported beside it, since a card below its full power limit runs
+    slower under load."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
 
 
 @contextlib.contextmanager
@@ -48,7 +62,7 @@ def trace(log_dir: str):
 
 
 def weight_stream_bytes(params) -> int:
-    """Bytes of parameters streamed from HBM per decoded token.
+    """Bytes of parameters streamed from device memory per decoded token.
 
     Every weight is read exactly once per token except the embedding
     table (a single-row gather).
@@ -71,14 +85,14 @@ def kv_stream_bytes(cfg, n_past: int, batch: int = 1, dtype_bytes: int = 2) -> i
 
 def decode_speed_of_light(
     params, cfg=None, n_past: int = 0, batch: int = 1,
-    chip: str = DEFAULT_CHIP, kv_dtype_bytes: int = 2,
+    device_kind: str | None = None, kv_dtype_bytes: int = 2,
 ) -> float:
-    """Roofline decode tok/s: HBM bandwidth / bytes-per-token.
+    """Roofline decode tok/s: device memory bandwidth / bytes-per-token.
 
     kv_dtype_bytes: 1 for int8 KV caches — using bf16 bytes for an int8
     cache overstates the roofline's denominator and once printed a
     nonsensical 102%-of-SoL line."""
-    bw = HBM_GBPS[chip] * 1e9
+    bw = device_peaks(device_kind)["hbm_gbps"] * 1e9
     bytes_per_tok = weight_stream_bytes(params)
     if cfg is not None and n_past:
         bytes_per_tok += (kv_stream_bytes(cfg, n_past, batch, kv_dtype_bytes)
@@ -91,12 +105,12 @@ def roofline_fraction(achieved_tok_s: float, params, **kw) -> float:
 
 
 def prefill_flops(cfg, n_tokens: int, batch: int = 1) -> float:
-    """MXU FLOPs one prefill pass must spend (matmuls + attention).
+    """Matrix FLOPs one prefill pass must spend (matmuls + attention).
 
     Weight matmuls: 2 * T * (all projection params).  Attention:
     causal QK^T + PV ≈ 2 * 2 * H * T^2/2 * Dh per layer (flash kernels
     skip the masked half).  The embedding gather and elementwise work
-    are not MXU FLOPs."""
+    are not matrix FLOPs."""
     d, f, v = cfg.n_embd, cfg.n_ff, cfg.n_vocab
     dq = cfg.n_head * cfg.head_dim
     dkv = cfg.n_kv_head * cfg.head_dim
@@ -110,21 +124,18 @@ def prefill_flops(cfg, n_tokens: int, batch: int = 1) -> float:
 
 
 def prefill_speed_of_light(cfg, n_tokens: int, batch: int = 1,
-                           chip: str = DEFAULT_CHIP) -> float:
-    """Roofline prefill seconds: max(MXU compute time, HBM weight read).
+                           device_kind: str | None = None) -> float:
+    """Roofline prefill seconds: matrix FLOPs over the bf16 peak.
 
-    Prefill is compute-bound beyond ~50 tokens (one weight pass amortizes
-    over T tokens); the max() keeps the bound honest for short prompts."""
-    t_flops = prefill_flops(cfg, n_tokens, batch) / (
-        MXU_TFLOPS_BF16[chip] * 1e12)
-    # Weight bytes at q4 lower-bound ~0.56 B/param; use bf16 2 B/param
-    # only when the caller has no params handy — callers wanting the
-    # bytes term exact should compare against weight_stream_bytes.
-    return t_flops
+    Prefill is compute-bound beyond a few hundred tokens (one weight pass
+    amortizes over T tokens); callers wanting the bytes bound of short
+    prompts compare against weight_stream_bytes."""
+    return prefill_flops(cfg, n_tokens, batch) / (
+        device_peaks(device_kind)["bf16_tflops"] * 1e12)
 
 
 def prefill_roofline_fraction(cfg, n_tokens: int, seconds: float,
                               batch: int = 1,
-                              chip: str = DEFAULT_CHIP) -> float:
-    """Fraction of the MXU compute roofline a measured prefill achieved."""
-    return prefill_speed_of_light(cfg, n_tokens, batch, chip) / seconds
+                              device_kind: str | None = None) -> float:
+    """Fraction of the bf16 compute roofline a measured prefill achieved."""
+    return prefill_speed_of_light(cfg, n_tokens, batch, device_kind) / seconds
